@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
-Drives the port's main path, the device QVZ2 encode, at a full-size
-input: 1,000,000 reads x 100 columns of Illumina-like quality scores made
-from seed 42, -f 0.5, MSE, one cluster, --shards 0 (the device lane
-count), priming on and off, the debug WELL seed. Phases:
+Drives the port's main paths, the device QVZ2 encode with one cluster
+and with k-means clustering (-c 3 -T 4), at a full-size input: 1,000,000
+reads x 100 columns of Illumina-like quality scores made from seed 42,
+-f 0.5, MSE, --shards 0 (the device lane count), priming on and off, the
+debug WELL seed. Phases:
 
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc
-  1. build both kernels (csrc/quantize.cu K1, csrc/coder.cu K2) from the
-     sources for sm_90a, with the ptxas report
-  2. the input; device statistics checked equal to the host C++ counts;
-     codebook design
+  1. build the four kernels (csrc/quantize.cu K1, csrc/coder.cu K2,
+     csrc/hist.cu K3, csrc/kmeans.cu K4) from the sources for sm_90a, one
+     nvcc per source in parallel, with the ptxas report
+  2. the input; device statistics (K3, one cluster) checked equal to the
+     host C++ counts; codebook design
   3. K1 against its plain PyTorch version at the full shape: element-equal
   4. K2 against its plain version on the slice's lane plan: words, carry
      and flags equal lane by lane, payload bytes equal
-  5. the end-to-end encode through qvz_tpu_torch.pipeline.encode.encode,
-     timed as the median of 5 runs without -u (the phase split is the
-     last run's): the container byte-equal to qvz_tpu's host encode
-     (pure C++, no JAX) for the same shards, priming and seed; decoded
-     by the shared host decoder to the port's reconstruction; -s figures
-     equal; each kernel launched by the encode itself
+  5. the end-to-end encode, -c 1, through
+     qvz_tpu_torch.pipeline.encode.encode, timed as the median of 5 runs
+     without -u (the phase split is the last run's): the container
+     byte-equal to qvz_tpu's host encode (pure C++, no JAX) for the same
+     shards, priming and seed; decoded by the shared host decoder to the
+     port's reconstruction; -s figures equal; hist, quantize and coder
+     launched by the encode itself
+  6. K4, one k-means step at K = 3 from seed_centroids, against its plain
+     version (assign, sums and counts equal), also with two identical
+     means (every tie to the lower index); then kmeans_cluster on the
+     card against the host C++ rt.kmeans_host: equal assignment, means
+     and iteration count
+  7. K3 against its plain version and rt.stats_host, with one cluster and
+     with the k-means ids of phase 6
+  8. K1 with the k-means ids against its plain version at the full shape
+  9. K2 with the cluster-id segment against its plain version, on the
+     segment and the first columns (the plain loop over all 100 columns
+     would take another ~50 s); the kernel's time is over all columns
+ 10. the end-to-end encode, -c 3 -T 4, median of 3 runs without -u, primed
+     and unprimed: checked as in 5 against qvz_tpu's host encode with
+     n_clusters=3; hist, kmeans, quantize and coder launched by the encode
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns. Every check that fails raises, so the script exits
@@ -74,6 +91,239 @@ def make_input(n: int, cols: int, seed: int):
         - (np.arange(cols - 1) // 40)
     return np.clip(np.concatenate([start, steps], 1).cumsum(1), 2,
                    41).astype(np.uint8)
+
+
+def in_turns(kernel, plain, torch, runs: int = 5):
+    """Median CUDA-event ms of kernel and plain, run in turns after one
+    warm-up of each; also returns the runs."""
+    kernel()
+    plain()
+    ks, ps = [], []
+    for _ in range(runs):
+        ks.append(event_ms(kernel, torch))
+        ps.append(event_ms(plain, torch))
+    return statistics.median(ks), statistics.median(ps), ks, ps
+
+
+def max_err(got, want) -> int:
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in zip(got, want))
+
+
+def clustered_phases(torch, np, data, dist, card) -> dict:
+    """Phases 6-10: the -c 3 -T 4 path. Returns the kernels' errors and
+    times, the encodes' medians and the encodes' kernel launches."""
+    from qvz_tpu.constants import MODE_RATIO
+    from qvz_tpu.native import runtime as rt
+    from qvz_tpu.ops.well import WellState
+    from qvz_tpu.pipeline import decode as host_decode
+    from qvz_tpu.pipeline import encode as host_encode
+    from qvz_tpu.spec.kmeans import seed_centroids
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.ops import coder_device as cd
+    from qvz_tpu_torch.ops import kmeans as tk
+    from qvz_tpu_torch.ops import quantize as tq
+    from qvz_tpu_torch.ops import stats as ts
+    from qvz_tpu_torch.pipeline import encode as port
+
+    K, T = 3, 4.0
+    dev = torch.device("cuda")
+    n, cols = data.shape
+    data_t = torch.from_numpy(np.ascontiguousarray(data.T)).to(dev)
+    res = {}
+
+    # -- 6. K4 -------------------------------------------------------------
+    seeds = seed_centroids(data, K).astype(np.int64)
+    means = torch.from_numpy(seeds).to(dev)
+    got = tk.kmeans_step(data_t, means)
+    want = tk.kmeans_step_reference(data_t, means)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    require(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)),
+            "K4 assign, sums and counts equal the plain version's")
+    tie = seeds.copy()
+    tie[1] = tie[0]
+    tie_t = torch.from_numpy(tie).to(dev)
+    got = tk.kmeans_step(data_t, tie_t)
+    want = tk.kmeans_step_reference(data_t, tie_t)
+    torch.cuda.synchronize()
+    err = max(err, max_err(got, want))
+    require(all(torch.equal(a, b) for a, b in zip(got, want))
+            and int(got[2][1]) == 0 and int(got[2][0]) > 0,
+            "K4 with two identical means gives every tie to the lower one")
+    k4, k4_plain, k4_runs, k4_plain_runs = in_turns(
+        lambda: tk.kmeans_step(data_t, means),
+        lambda: tk.kmeans_step_reference(data_t, means), torch)
+    t = time.perf_counter()
+    assign_dev, km_means, iters = tk.kmeans_cluster(data, K, T,
+                                                    data_t=data_t)
+    torch.cuda.synchronize()
+    km_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    h_assign, h_means, h_iters = rt.kmeans_host(data, K, T)
+    host_secs = time.perf_counter() - t
+    clusters = assign_dev.cpu().numpy()
+    require(np.array_equal(clusters, h_assign)
+            and np.array_equal(km_means, h_means) and iters == h_iters,
+            "kmeans_cluster on the card equals rt.kmeans_host")
+    sizes = np.bincount(clusters, minlength=K).tolist()
+    res.update(k4_err=err, k4_ms=k4, k4_plain_ms=k4_plain)
+    print(f"[6] K4 k-means step {n} x {cols}, K={K}: equal (max abs err "
+          f"{err}), ties to the lower index; kernel {k4:.3f} ms, plain "
+          f"{k4_plain:.3f} ms (median of 5, in turns); kernel {k4_runs}, "
+          f"plain {k4_plain_runs}", flush=True)
+    print(f"[6] kmeans_cluster -T {T:g}: {iters} iterations, cluster sizes "
+          f"{sizes}, equal to rt.kmeans_host ({h_iters} iterations); "
+          f"{km_secs:.4f} s on the card, {host_secs:.4f} s on the host",
+          flush=True)
+
+    # -- 7. K3 -------------------------------------------------------------
+    cl_t = assign_dev
+    err = 0
+    k3_times = {}
+    for c, ids, ids_h in ((1, None, None), (K, cl_t, clusters)):
+        got = ts.conditional_counts_t(data_t, ids, c)
+        want = ts.conditional_counts_reference(data_t, ids, c)
+        torch.cuda.synchronize()
+        host = rt.stats_host(data, ids_h, c)
+        err = max(err, max_err(got, want))
+        require(all(torch.equal(a, b) for a, b in zip(got, want))
+                and all(np.array_equal(a.cpu().numpy(), b)
+                        for a, b in zip(got, host)),
+                f"K3 with {c} clusters equals its plain version and "
+                "rt.stats_host")
+        k3_times[c] = in_turns(
+            lambda: ts.conditional_counts_t(data_t, ids, c),
+            lambda: ts.conditional_counts_reference(data_t, ids, c), torch)
+        print(f"[7] K3 histograms {cols} x {n}, C={c}: equal to the plain "
+              f"version and rt.stats_host (max abs err {err}); kernel "
+              f"{k3_times[c][0]:.3f} ms, plain {k3_times[c][1]:.3f} ms "
+              f"(median of 5, in turns); kernel {k3_times[c][2]}, plain "
+              f"{k3_times[c][3]}", flush=True)
+    res.update(k3_err=err, k3_ms=k3_times[K][0], k3_plain_ms=k3_times[K][1],
+               k3_c1_ms=k3_times[1][0], k3_c1_plain_ms=k3_times[1][1])
+
+    # -- 8. K1 with the cluster ids -----------------------------------------
+    c0, cond = ts.conditional_counts_t(data_t, cl_t, K)
+    tables = rt.Design(c0.cpu().numpy(), cond.cpu().numpy(), MODE_RATIO,
+                       0.5, dist).tables()
+    counts, states, offs, prime_on = port.shard_plan(
+        n, cols, port.device_lane_count(n), True, WellState.debug())
+    draws = host_encode._shard_draws(states, counts, cols)
+    draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
+    tabs = tq.tables_to_torch(tables, dev)
+    got = tq.quantize_t_device(tabs, data_t, draws_t, cl_t)
+    want = tq.quantize_reference(tabs, data_t, draws_t, cl_t)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    require(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)),
+            "K1 with cluster ids equals its plain version")
+    k1c, k1c_plain, _, _ = in_turns(
+        lambda: tq.quantize_t_device(tabs, data_t, draws_t, cl_t),
+        lambda: tq.quantize_reference(tabs, data_t, draws_t, cl_t), torch)
+    res["k1_err"] = err
+    print(f"[8] K1 quantize with {K} clusters {cols} x {n}: equal (max abs "
+          f"err {err}); kernel {k1c:.3f} ms, plain {k1c_plain:.3f} ms "
+          f"(median of 5, in turns)", flush=True)
+    mid, qs, _ = got
+    del want, draws_t
+
+    # -- 9. K2 with the cluster-id segment -----------------------------------
+    w_n = int(counts[0])
+    md0, qs0, _, _ = rt.quantize_colmajor(
+        tables, np.ascontiguousarray(data[:w_n].T), clusters[:w_n],
+        states[0])
+    plan = cd.LanePlan(tables, rt.bank_from_stream(
+        tables, md0, qs0, clusters[:w_n], w_n))
+    plan_t = cd.plan_to_torch(plan, dev)
+    lane_counts, base = counts[1:], int(offs[1])
+    ctrip = np.zeros((len(lane_counts), max(lane_counts), 3), np.uint32)
+    for w in range(len(lane_counts)):
+        lo, hi = int(offs[1 + w]), int(offs[2 + w])
+        ctrip[w, : hi - lo] = rt.replay_model(
+            plan.cluster_init_counts, plan.cluster_init_total,
+            clusters[lo:hi])
+    k = 2
+    plan_k = dict(plan_t, columns=k)
+    mid_k, qs_k = mid[:k].contiguous(), qs[:k].contiguous()
+    got = cd.fetch_lanes(*cd.code_lanes(plan_k, mid_k, qs_k, lane_counts,
+                                        base, ctrip))
+    t = time.perf_counter()
+    want = cd.fetch_lanes(*cd.encode_lanes_reference(
+        plan_k, mid_k, qs_k, lane_counts, base, ctrip))
+    seg_plain = (time.perf_counter() - t) * 1e3
+    pk, fk = cd.payloads_from_raw(*got)
+    pp, fp = cd.payloads_from_raw(*want)
+    ok = ~fk
+    err = max([int(np.abs(got[0][w, : got[1][w]].astype(np.int64)
+                          - want[0][w, : want[1][w]].astype(np.int64)).max())
+               for w in np.flatnonzero(ok) if got[1][w]] + [0])
+    err = max(err, int(np.abs(got[2][:5, ok] - want[2][:5, ok]).max()))
+    require(np.array_equal(fk, fp) and np.array_equal(got[1], want[1])
+            and err == 0 and pk == pp,
+            "K2 with the cluster-id segment equals its plain version")
+    res["k2_err"] = err
+    seg_ms = statistics.median(
+        event_ms(lambda: cd.code_lanes(plan_t, mid, qs, lane_counts, base,
+                                       ctrip), torch) for _ in range(3))
+    print(f"[9] K2 with the cluster-id segment, {len(lane_counts)} lanes: "
+          f"segment + {k} columns equal to the plain version (max abs err "
+          f"{err}, {int(fk.sum())} flagged lanes; plain {seg_plain:.1f} "
+          f"ms); kernel over the segment and all {cols} columns "
+          f"{seg_ms:.3f} ms (median of 3)", flush=True)
+    del mid, qs, got, want, data_t
+
+    # -- 10. the end-to-end encode, -c 3 -T 4 -------------------------------
+    mb = n * (cols + 1) / 1e6
+    _build.LAUNCHES.clear()
+    res["e2e"] = {}
+    for prime in (True, False):
+        kw = dict(n_clusters=K, cluster_threshold=T,
+                  well_state=WellState.debug(), shards=0, prime=prime)
+        out = port.encode(data, dist, want_recon=True, device="cuda", **kw)
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fast = port.encode(data, dist, want_recon=False, device="cuda",
+                               **kw)
+            runs.append(time.perf_counter() - t)
+        secs = statistics.median(runs)
+        kw["shards"] = port.device_lane_count(n)
+        ref = host_encode.encode(data, dist, use_jax=False,
+                                 want_recon=False, **kw)
+        require(out.compressed == ref.compressed,
+                f"-c 3 prime={prime}: container byte-equal to qvz_tpu's "
+                "host encode")
+        require(fast.compressed == out.compressed
+                and np.array_equal(out.clusters, ref.clusters),
+                f"-c 3 prime={prime}: repeated encode byte-equal, clusters "
+                "equal")
+        dec = host_decode.decode(out.compressed)
+        require(np.array_equal(dec[:, :cols], out.reconstructed + 33),
+                f"-c 3 prime={prime}: host decode equals the -u "
+                "reconstruction")
+        for o in (out, fast):
+            require(f"{o.stats.rate:.4f} {o.stats.distortion:.4f} "
+                    f"{o.stats.payload_bytes}"
+                    == f"{ref.stats.rate:.4f} {ref.stats.distortion:.4f} "
+                    f"{ref.stats.payload_bytes}",
+                    f"-c 3 prime={prime}: -s rate, distortion and size "
+                    "equal")
+        phases = {k: round(v, 6) for k, v in fast.stats.phase_seconds.items()}
+        res["e2e"][prime] = secs
+        print(f"[10] -c 3 prime={prime}: {len(ref.compressed)} B container "
+              f"byte-equal, decoded equal; encode median of 3 {secs:.4f} s "
+              f"= {mb / secs:.1f} MB/s (runs {[round(r, 4) for r in runs]}"
+              f"); rate {fast.stats.rate:.4f} distortion "
+              f"{fast.stats.distortion:.4f}; host-fallback lanes "
+              f"{fast.stats.coder_fallback_lanes}; phases "
+              f"{json.dumps(phases)}", flush=True)
+    res["launches"] = dict(_build.LAUNCHES)
+    print(f"[10] kernel launches by the -c 3 encodes: {res['launches']}")
+    for name in ("hist", "kmeans", "quantize", "coder"):
+        require(res["launches"].get(name, 0) >= 1,
+                f"the -c 3 encode launched {name}")
+    return res
 
 
 def main() -> int:
@@ -264,24 +514,43 @@ def main() -> int:
               f"{json.dumps(phases)}", flush=True)
     launches = dict(_build.LAUNCHES)
     print(f"[5] kernel launches by the encodes: {launches}")
-    for name in ("quantize", "coder"):
+    for name in ("hist", "quantize", "coder"):
         require(launches.get(name, 0) >= 1, f"the encode launched {name}")
+
+    # -- 6.-10. the clustered path (-c 3 -T 4) -----------------------------
+    clus = clustered_phases(torch, np, data, dist, card)
+    for name, k in clus["launches"].items():
+        launches[name] = launches.get(name, 0) + k
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
         {"name": "quantize", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/quantize.cu",
          "replaces": "qvz_tpu/ops/quantize_pallas.py:292",
-         "launches": launches["quantize"], "max_abs_err": k1_err,
+         "launches": launches["quantize"],
+         "max_abs_err": max(k1_err, clus["k1_err"]),
          "ms": k1, "plain_ms": k1_plain},
         {"name": "coder", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/coder.cu",
          "replaces": "qvz_tpu/ops/coder_pallas.py:159",
-         "launches": launches["coder"], "max_abs_err": k2_err,
+         "launches": launches["coder"],
+         "max_abs_err": max(k2_err, clus["k2_err"]),
          "ms": k2, "plain_ms": k2_plain},
+        {"name": "hist", "route": "cuda",
+         "source": "qvz_tpu_torch/csrc/hist.cu",
+         "replaces": "qvz_tpu/ops/pallas_kernels.py:168",
+         "launches": launches["hist"], "max_abs_err": clus["k3_err"],
+         "ms": clus["k3_ms"], "plain_ms": clus["k3_plain_ms"]},
+        {"name": "kmeans", "route": "cuda",
+         "source": "qvz_tpu_torch/csrc/kmeans.cu",
+         "replaces": "qvz_tpu/ops/pallas_kernels.py:33",
+         "launches": launches["kmeans"], "max_abs_err": clus["k4_err"],
+         "ms": clus["k4_ms"], "plain_ms": clus["k4_plain_ms"]},
     ]
-    print(f"e2e encode MB/s: prime on {mb / e2e[True]:.1f}, "
-          f"prime off {mb / e2e[False]:.1f}")
+    print(f"e2e encode MB/s: -c 1 prime on {mb / e2e[True]:.1f}, "
+          f"prime off {mb / e2e[False]:.1f}; -c 3 prime on "
+          f"{mb / clus['e2e'][True]:.1f}, prime off "
+          f"{mb / clus['e2e'][False]:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

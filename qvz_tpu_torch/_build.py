@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels.
 
 On first use the sources in ``csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface,
+``sm_90a``, one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface,
 ``build/kernels/libqvz_cuda_<sha16 of the sources>.so`` under the
-repository root, and loaded with ``ctypes`` (the pattern of
+repository root, loaded with ``ctypes`` (the pattern of
 ``qvz_tpu/native/__init__.py``). A changed source gets a new hash and so
 a new build; ``rm -rf build/kernels`` forces one. The ``ptxas`` report
 (registers, spills) is kept beside the library as ``.log``.
@@ -28,11 +29,11 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Kernel launches per wrapper ("quantize", "coder"): each wrapper adds one
-# where it launches its kernel, and nowhere else.
+# Kernel launches per wrapper ("quantize", "coder", "hist", "kmeans"): each
+# wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -60,19 +61,39 @@ def nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _start(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(cmd: list[str], proc: subprocess.Popen) -> str:
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return out
+
+
 def build(path: pathlib.Path) -> str:
     """Compile every source into `path`; returns the compiler's report."""
     path.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=path.parent) as td:
         tmp = pathlib.Path(td) / path.name
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources() if s.suffix == ".cu")]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                f"{r.stdout}{r.stderr}")
-        report = r.stdout + r.stderr
+        objs = []
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            objs.append(str(pathlib.Path(td) / f"{src.stem}.o"))
+            cmd = [nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", objs[-1]]
+            jobs.append((cmd, _start(cmd)))
+        try:
+            report = "".join(_finish(cmd, proc) for cmd, proc in jobs)
+        finally:
+            for _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        link = [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
+        report += _finish(link, _start(link))
         path.with_suffix(".log").write_text(report)
         os.replace(tmp, path)
     return report
@@ -91,9 +112,13 @@ def load() -> ctypes.CDLL:
     lib.qvz_quantize.argtypes = [p, p, p, i64, i32, p, p, p, p, p,
                                  p, p, p, p]
     lib.qvz_quantize.restype = ctypes.c_int
-    lib.qvz_code_lanes.argtypes = [p, p, i64, i32, p, i32, p, p, p, p,
-                                   i32, p, p, i64, p, p, p]
+    lib.qvz_code_lanes.argtypes = [p, p, i64, i32, p, i32, p, i64, p, p,
+                                   p, p, i32, p, p, i64, p, p, p]
     lib.qvz_code_lanes.restype = ctypes.c_int
+    lib.qvz_hist.argtypes = [p, p, i64, i32, i32, p, p, p]
+    lib.qvz_hist.restype = ctypes.c_int
+    lib.qvz_kmeans_step.argtypes = [p, i64, i32, p, i32, i32, p, p, p, p]
+    lib.qvz_kmeans_step.restype = ctypes.c_int
     _lib = lib
     return lib
 

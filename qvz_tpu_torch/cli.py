@@ -4,12 +4,13 @@ for the device QVZ2 encode.
 Usage: python -m qvz_tpu_torch (options) [input file] [output file]
 
 Flags as ``python -m qvz_tpu`` (src/main.c:166-184): -q/-x/-f/-r/-d/-D/
--c 1/-T/-u/-h/-s/-v, --debug-seed, --well-state F, --shards N (0, the
+-c/-T/-u/-h/-s/-v, --debug-seed, --well-state F, --shards N (0, the
 default, picks the device lane count; N >= 2 pins it), --no-prime, plus
 --device cuda|cpu (default cuda), which takes the place of --jax.
--x decodes with qvz_tpu's shared host decoder. -c K>1, --shards 1,
---hosts, --streaming and --reuse-books are not ported yet and stop with
-an error that names the ROADMAP item.
+-c K > 1 clusters the reads with k-means on the device first.
+-x decodes with qvz_tpu's shared host decoder. --shards 1, --hosts,
+--streaming and --reuse-books are not ported yet and stop with an error
+that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def usage(name: str) -> None:
     print("   -r [rate]    : Compress using fixed [rate] bits per symbol")
     print("   -d [M|L|A]   : Optimize for MSE, Log(1+L1), L1 distortions, respectively (default: MSE)")
     print("   -D [FILE]    : Optimize using the custom distortion matrix specified in FILE")
-    print("   -c [#]       : Compress using [#] clusters (only 1 is ported)")
+    print("   -c [#]       : Compress using [#] clusters (default: 1)")
     print("   -T [#]       : Use [#] as a threshold for cluster center movement (default: 4)")
     print("   -u [FILE]    : Write the uncompressed lossy values to FILE (default: off)")
     print("   -h           : Print this help")
@@ -140,6 +141,8 @@ def main(argv=None) -> int:
         print("Missing required filenames.")
         usage(name)
         return 1
+    if opts["verbose"]:
+        _preamble(opts, extract, *files)
     try:
         return _run(opts, extract, *files)
     except FileNotFoundError as e:
@@ -148,6 +151,30 @@ def main(argv=None) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"Error: {e}")
         return 1
+
+
+def _preamble(opts, extract, input_name, output_name) -> None:
+    """The reference's -v preamble (main.c:311-340), worded as
+    ``python -m qvz_tpu`` prints it."""
+    if extract:
+        print(f"{input_name} will be decoded to {output_name}.")
+        return
+    print(f"{input_name} will be encoded as {output_name}.")
+    if opts["mode"] == MODE_RATIO:
+        print(f"Ratio mode selected, targeting {opts['ratio']:f} "
+              "compression ratio.")
+    else:
+        print(f"Fixed-rate mode selected, targeting {opts['ratio']:f} "
+              "bits per symbol.")
+    print({DISTORTION_MSE: "MSE will be used as a distortion metric.",
+           DISTORTION_LORENTZ: "log(1+L1) will be used as a distortion "
+                               "metric.",
+           DISTORTION_MANHATTAN: "L1 will be used as a distortion metric.",
+           DISTORTION_CUSTOM: f"A custom distortion metric stored in "
+                              f"{opts['dist_file']} will be used."}
+          [opts["distortion"]])
+    print(f"Compression will use {opts['clusters']} clusters, with a "
+          f"movement threshold of {opts['cluster_threshold']:.0f}.")
 
 
 def _run(opts, extract, input_name, output_name) -> int:

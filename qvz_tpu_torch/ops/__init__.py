@@ -1,1 +1,2 @@
-"""Device operations: quantize (K1), lane coder (K2), statistics."""
+"""Device operations: quantize (K1), lane coder (K2), statistics (K3),
+k-means (K4)."""

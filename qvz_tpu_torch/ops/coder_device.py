@@ -12,6 +12,11 @@ That module imports JAX when it loads, so the numpy parts the port needs
 are copied here: the per-column slot layout of ``LanePlan`` and
 ``finish_payload``.
 
+With more than one cluster (-c K > 1), each lane first codes its lines'
+cluster ids, one step per line before column 0, with explicit triples
+(cum_lo, cum_hi, total) that the caller replays exactly on the host
+(``rt.replay_model``): the cluster-id segment.
+
 Raw lane output, shared by K2 and its plain version:
   words   (W, max_words) int32  the lane's packed 32-bit words (u32 bits)
   n_words (W,) int32            how many of them are valid
@@ -50,7 +55,9 @@ class LanePlan:
     Column c's models (ids 1 + 2*(pair_base(cl, c) + ctx) + choice) get
     consecutive slot ranges; slot = slot_base[model] + symbol indexes
     that model's count inside the column. S is the largest slot count
-    of any column."""
+    of any column. totals are the init bank's model totals; the
+    cluster-id model (id 0) starts from cluster_init_counts and
+    cluster_init_total."""
 
     def __init__(self, tables, init_bank: np.ndarray | None):
         cards = np.asarray(tables.model_card, dtype=np.int64)
@@ -66,9 +73,11 @@ class LanePlan:
 
         if init_bank is None:
             counts_init = np.ones(int(offs[-1]), dtype=np.uint32)
+            totals_init = cards.astype(np.uint32)
         else:
-            counts_init = np.asarray(init_bank,
-                                     dtype=np.uint32)[: int(offs[-1])]
+            blob = np.asarray(init_bank, dtype=np.uint32)
+            counts_init = blob[: int(offs[-1])]
+            totals_init = blob[int(offs[-1]): int(offs[-1]) + n_models]
 
         slot_base = np.zeros(n_models, dtype=np.int32)
         col_models = []
@@ -100,6 +109,9 @@ class LanePlan:
         self.slot_base = slot_base
         self.cards = cards.astype(np.int32)
         self.col_slots = col_slots.astype(np.int32)
+        self.totals = totals_init.astype(np.uint32)
+        self.cluster_init_counts = counts_init[: int(cards[0])].copy()
+        self.cluster_init_total = int(totals_init[0])
 
 
 def plan_to_torch(plan: LanePlan, device) -> dict:
@@ -187,9 +199,11 @@ def _coder_step(l, u, s3, acc, nacc, flag, clo, chi, n):
 
 
 def encode_lanes_reference(plan_t: dict, mid: torch.Tensor,
-                           qs: torch.Tensor, lane_counts, base: int):
+                           qs: torch.Tensor, lane_counts, base: int,
+                           cluster_triples: np.ndarray | None = None):
     """Plain PyTorch version of K2: the per-step loop vectorised over
-    lanes, in int64. Returns the raw lane output (words, n_words, carry)
+    lanes, in int64, the cluster-id segment first when cluster_triples
+    is given. Returns the raw lane output (words, n_words, carry)
     described in the module docstring."""
     dev = mid.device
     cols = mid.shape[0]
@@ -212,6 +226,22 @@ def encode_lanes_reference(plan_t: dict, mid: torch.Tensor,
     l, u, s3, acc, nacc = zero, zero + FULL, zero, zero, zero
     flag = torch.zeros(W, dtype=torch.bool, device=dev)
     words, flushes = [], []
+
+    def code(clo, chi, n):
+        nonlocal l, u, s3, acc, nacc, flag
+        (l, u, s3, acc, nacc, flag), (w0, f0, w1, f1) = _coder_step(
+            l, u, s3, acc, nacc, flag, clo, chi, n)
+        words.extend((w0, w1))
+        flushes.extend((f0, f1))
+
+    if cluster_triples is not None:
+        ct = torch.as_tensor(cluster_triples.astype(np.int64), device=dev)
+        for t in range(L):
+            # pad steps past a ragged lane's end take the no-op (0, 1, 1)
+            v = valid[:, t]
+            code(torch.where(v, ct[:, t, 0], 0),
+                 torch.where(v, ct[:, t, 1], 1),
+                 torch.where(v, ct[:, t, 2], 1))
     for c in range(cols):
         m = torch.where(valid, mid[c][idx].long(), 0)              # (W, L)
         x = torch.where(valid, qs[c][idx].long(), 0)
@@ -228,13 +258,8 @@ def encode_lanes_reference(plan_t: dict, mid: torch.Tensor,
             flag = flag | (lv & (total + STEP > ARITH_R))
             counts[ar_w, (sbt + xt).clamp(max=S - 1)] += STEP * lv
             # no-op steps take the triple (0, 1, 1)
-            clo = torch.where(lv, cum_lo, 0)
-            chi = torch.where(lv, cum_lo + cx, 1)
-            n = torch.where(lv, total, 1)
-            (l, u, s3, acc, nacc, flag), (w0, f0, w1, f1) = _coder_step(
-                l, u, s3, acc, nacc, flag, clo, chi, n)
-            words += [w0, w1]
-            flushes += [f0, f1]
+            code(torch.where(lv, cum_lo, 0), torch.where(lv, cum_lo + cx, 1),
+                 torch.where(lv, total, 1))
 
     carry = torch.stack([l, u, s3, acc, nacc, flag.long()])
     if not words:
@@ -252,7 +277,12 @@ def encode_lanes_reference(plan_t: dict, mid: torch.Tensor,
     return out.to(torch.int32), n_words.to(torch.int32), carry
 
 
-def _check(plan_t, mid, qs, lane_counts, base):
+def _check(plan_t, mid, qs, lane_counts, base, cluster_triples):
+    if cluster_triples is not None:
+        want = (len(lane_counts), int(max(lane_counts)), 3)
+        if cluster_triples.dtype != np.uint32 \
+                or cluster_triples.shape != want:
+            raise ValueError(f"cluster_triples must be {want} uint32")
     if mid.dtype != torch.int32 or qs.dtype != torch.int32:
         raise TypeError("mid and qs must be int32")
     if mid.dim() != 2 or qs.shape != mid.shape:
@@ -268,14 +298,18 @@ def _check(plan_t, mid, qs, lane_counts, base):
 
 
 def code_lanes(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
-               lane_counts, base: int):
+               lane_counts, base: int,
+               cluster_triples: np.ndarray | None = None):
     """Code lane w = lines base + sum(lane_counts[:w]) onwards, for
-    lane_counts[w] lines, from the (cols, N) int32 quantize outputs.
-    Returns the raw lane output (words, n_words, carry). CPU tensors take
-    the plain version; CUDA tensors launch K2 (csrc/coder.cu) or raise."""
-    _check(plan_t, mid, qs, lane_counts, base)
+    lane_counts[w] lines, from the (cols, N) int32 quantize outputs;
+    cluster_triples, (W, max lane count, 3) uint32 or None, are the
+    lanes' cluster-id steps. Returns the raw lane output (words, n_words,
+    carry). CPU tensors take the plain version; CUDA tensors launch K2
+    (csrc/coder.cu) or raise."""
+    _check(plan_t, mid, qs, lane_counts, base, cluster_triples)
     if mid.device.type == "cpu":
-        return encode_lanes_reference(plan_t, mid, qs, lane_counts, base)
+        return encode_lanes_reference(plan_t, mid, qs, lane_counts, base,
+                                      cluster_triples)
     if mid.device.type != "cuda":
         raise ValueError(f"unsupported device {mid.device}")
     lib = _build.load()
@@ -286,7 +320,12 @@ def code_lanes(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
     W = len(lane_counts)
     S = plan_t["S"]
     offs = _lane_offsets(lane_counts, base, dev)
-    max_steps = cols * (int(max(lane_counts)) if W else 0)
+    L = int(max(lane_counts)) if W else 0
+    ct = None
+    if cluster_triples is not None:
+        ct = torch.from_numpy(np.ascontiguousarray(
+            cluster_triples).view(np.int32)).to(dev)
+    max_steps = (cols + (ct is not None)) * L
     max_words = -(-max_steps * BITS_PER_STEP_BOUND // 32) + 2
     counts = torch.empty((W, S), dtype=torch.int32, device=dev)
     words = torch.empty((W, max_words), dtype=torch.int32, device=dev)
@@ -294,6 +333,7 @@ def code_lanes(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
     carry = torch.empty((6, W), dtype=torch.int64, device=dev)
     rc = lib.qvz_code_lanes(
         mid.data_ptr(), qs.data_ptr(), n, cols, offs.data_ptr(), W,
+        ct.data_ptr() if ct is not None else None, L,
         plan_t["slot_base"].data_ptr(), plan_t["cards"].data_ptr(),
         plan_t["init_counts"].data_ptr(), plan_t["col_slots"].data_ptr(),
         S, counts.data_ptr(), words.data_ptr(), max_words,
@@ -352,14 +392,17 @@ def payloads_from_raw(words_h, n_words_h, carry_h):
 
 
 def encode_lanes_raw(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
-                     lane_counts, base: int, timings: dict | None = None):
+                     lane_counts, base: int,
+                     cluster_triples: np.ndarray | None = None,
+                     timings: dict | None = None):
     """(payloads, flags) for the lanes of the (cols, N) quantize outputs:
-    the contract of ``qvz_tpu.ops.coder_device.encode_lanes_raw`` (one
-    cluster). Lane w covers lines base + sum(lane_counts[:w]) onwards;
-    payloads[w] is None where flags[w] is set and the caller must re-code
-    that lane on the host. timings, if given, gets the seconds of the
-    device-to-host copy under "d2h" (fenced)."""
-    raw = code_lanes(plan_t, mid, qs, lane_counts, base)
+    the contract of ``qvz_tpu.ops.coder_device.encode_lanes_raw``. Lane w
+    covers lines base + sum(lane_counts[:w]) onwards; cluster_triples
+    (W, max lane count, 3) uint32 are its cluster-id steps, None with one
+    cluster. payloads[w] is None where flags[w] is set and the caller
+    must re-code that lane on the host. timings, if given, gets the
+    seconds of the device-to-host copy under "d2h" (fenced)."""
+    raw = code_lanes(plan_t, mid, qs, lane_counts, base, cluster_triples)
     if mid.device.type == "cuda":
         torch.cuda.synchronize(mid.device)
     t0 = time.perf_counter()

@@ -2,13 +2,17 @@
 
 Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
 
-  h2d          the (N, cols) uint8 matrix and the dither draws to the device
-  stats        conditional statistics on the device (ops/stats.py)
+  h2d          the (N, cols) uint8 matrix and the dither draws to the
+               device, and its (cols, N) transpose there
+  cluster      k-means on the device (ops/kmeans.py, K4) for -c K > 1; the
+               convergence loop on the host
+  stats        conditional statistics on the device (ops/stats.py, K3)
   design       codebook design on the host (C++ runtime, exact doubles)
   draws        WELL jump-ahead and dither draws on the host
   quantize     K1 on the device (ops/quantize.py)
-  device_code  K2 on the device (ops/coder_device.py), the warmup shard
-               coded by a host thread meanwhile, and the payload d2h
+  device_code  the cluster-id triples (host replay), K2 on the device
+               (ops/coder_device.py), the warmup shard coded by a host
+               thread meanwhile, and the payload d2h
   d2h          the device-to-host copies of payload words and recon
   code         everything after quantize: lane coding, host re-coding of
                flagged lanes, distortion and container assembly
@@ -35,7 +39,8 @@ from qvz_tpu.pipeline import encode as host_encode
 from qvz_tpu.pipeline.encode import (EncodeOutput, EncodeStats, _shard_draws,
                                      _shard_plan)
 from qvz_tpu_torch.device import resolve, synchronize
-from qvz_tpu_torch.ops import coder_device, quantize, stats as dev_stats
+from qvz_tpu_torch.ops import coder_device, kmeans, quantize
+from qvz_tpu_torch.ops import stats as dev_stats
 
 
 def device_lane_count(n: int) -> int:
@@ -88,13 +93,11 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
            device: str | torch.device = "cuda") -> EncodeOutput:
     """Encode (N, cols) uint8 symbols into a QVZ2 container on `device`.
 
-    shards=0 picks the device lane count; shards >= 2 pins it. prime:
-    shards after the warmup shard start from its model bank. Outside
-    this slice (raise NotImplementedError): n_clusters > 1,
+    n_clusters > 1 clusters the reads with k-means first (threshold
+    cluster_threshold, -T). shards=0 picks the device lane count;
+    shards >= 2 pins it. prime: shards after the warmup shard start from
+    its model bank. Outside this slice (raise NotImplementedError):
     reuse_blocks, and the single-stream v1 container (shards == 1)."""
-    if n_clusters != 1:
-        raise _not_ported("-c K>1 (k-means and the cluster-id segment)",
-                          "item 6")
     if reuse_blocks is not None:
         raise _not_ported("--reuse-books", "item 10")
     dev = resolve(device)
@@ -112,69 +115,82 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
 
     t0 = time.perf_counter()
     data_dev = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+    data_t = data_dev.t().contiguous()
+    del data_dev
     synchronize(dev)
     t1 = time.perf_counter()
     ph["h2d"] = dv["h2d"] = t1 - t0
-    ph["cluster"] = 0.0
-    if verbose:
-        print(f"Clustering took {0.0:.4f} seconds")
 
-    counts0, cond = dev_stats.conditional_counts(data_dev, None, 1)
-    counts0, cond = counts0.cpu().numpy(), cond.cpu().numpy()
+    cl_dev = clusters = None
+    if n_clusters > 1:
+        cl_dev, _, _ = kmeans.kmeans_cluster(
+            data, n_clusters, cluster_threshold, verbose=verbose,
+            data_t=data_t)
+        clusters = cl_dev.cpu().numpy()
+        dv["cluster"] = time.perf_counter() - t1
     t2 = time.perf_counter()
-    ph["stats"] = dv["stats"] = t2 - t1
+    ph["cluster"] = t2 - t1
+    if verbose:
+        print(f"Clustering took {t2 - t1:.4f} seconds")
+
+    counts0, cond = dev_stats.conditional_counts_t(data_t, cl_dev,
+                                                   n_clusters)
+    counts0, cond = counts0.cpu().numpy(), cond.cpu().numpy()
+    t3 = time.perf_counter()
+    ph["stats"] = dv["stats"] = t3 - t2
 
     design = rt.Design(counts0, cond, mode, ratio, dist_matrix)
     blocks = design.serialized()
     tables = design.tables()
-    t3 = time.perf_counter()
-    ph["design"] = t3 - t2
+    t4 = time.perf_counter()
+    ph["design"] = t4 - t3
     if verbose:
-        print(f"Stats and codebook generation took {t3 - t1:.4f} seconds")
+        print(f"Stats and codebook generation took {t4 - t2:.4f} seconds")
 
     counts, states, offs, prime_on = shard_plan(n, columns, shards, prime,
                                                 well_state)
     draws = _shard_draws(states, counts, columns)
-    t4 = time.perf_counter()
-    ph["draws"] = t4 - t3
-
-    draws_dev = torch.from_numpy(draws).to(dev)
-    synchronize(dev)
     t5 = time.perf_counter()
-    ph["h2d"] += t5 - t4
-    dv["h2d"] += t5 - t4
+    ph["draws"] = t5 - t4
 
-    data_t = data_dev.t().contiguous()
-    mid, qs, qv = quantize.quantize_t_device(
-        quantize.tables_to_torch(tables, dev), data_t,
-        draws_dev.t().contiguous())
-    del draws_dev
+    draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
     synchronize(dev)
     t6 = time.perf_counter()
-    ph["quantize"] = dv["quantize"] = t6 - t5
+    ph["h2d"] += t6 - t5
+    dv["h2d"] += t6 - t5
+
+    mid, qs, qv = quantize.quantize_t_device(
+        quantize.tables_to_torch(tables, dev), data_t, draws_t, cl_dev)
+    del draws_t
+    synchronize(dev)
+    t7 = time.perf_counter()
+    ph["quantize"] = dv["quantize"] = t7 - t6
 
     payloads, dist_sum, recon = _code_shards(
-        tables, data, data_t, mid, qs, qv, states, counts, offs, prime_on,
-        dist_matrix, want_recon, st)
+        tables, data, data_t, clusters, mid, qs, qv, states, counts, offs,
+        prime_on, dist_matrix, want_recon, st)
 
     shard_states = [np.asarray(states[s], dtype="<u4").tobytes()
                     for s in range(len(counts))]
     compressed = container_v2.build(
-        blocks, 1, columns, n, counts, shard_states, payloads,
+        blocks, n_clusters, columns, n, counts, shard_states, payloads,
         priming=1 if prime_on else 0)
-    ph["code"] = time.perf_counter() - t6
+    ph["code"] = time.perf_counter() - t7
 
     st.payload_bytes = sum(len(p) for p in payloads)
     st.rate = (st.payload_bytes * 8.0) / (float(n) * columns)
     st.distortion = dist_sum / n
-    return EncodeOutput(compressed, recon, np.zeros(n, dtype=np.uint8), st)
+    return EncodeOutput(compressed, recon,
+                        np.zeros(n, dtype=np.uint8) if clusters is None
+                        else clusters, st)
 
 
-def _code_shards(tables, data, data_t, mid, qs, qv, states, counts, offs,
-                 prime_on, dist_matrix, want_recon, st):
+def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
+                 counts, offs, prime_on, dist_matrix, want_recon, st):
     """Entropy-code the shards: the warmup shard on the host in a thread,
     every other shard as one device lane (the counterpart of qvz_tpu's
-    _device_coder_encode). Returns (payloads, distortion sum, recon)."""
+    _device_coder_encode). clusters: (N,) uint8 ids, or None with one
+    cluster. Returns (payloads, distortion sum, recon)."""
     ph, dv = st.phase_seconds, st.device_seconds
     columns = data.shape[1]
     t0 = time.perf_counter()
@@ -187,24 +203,37 @@ def _code_shards(tables, data, data_t, mid, qs, qv, states, counts, offs,
         # decisions alone, so its payload is coded in a host thread
         # while the device codes the lanes.
         w_n = int(counts[0])
+        w_cl = clusters[:w_n] if clusters is not None else None
         md0, qs0, _, _ = rt.quantize_colmajor(
-            tables, np.ascontiguousarray(data[:w_n].T), None, states[0])
-        bank = rt.bank_from_stream(tables, md0, qs0, None, w_n)
+            tables, np.ascontiguousarray(data[:w_n].T), w_cl, states[0])
+        bank = rt.bank_from_stream(tables, md0, qs0, w_cl, w_n)
 
         def _code_warmup():
             warmup_out[0] = rt.encode_precomputed_colmajor(
-                tables, md0, qs0, None, w_n)
+                tables, md0, qs0, w_cl, w_n)
 
         warmup_thread = threading.Thread(target=_code_warmup)
         warmup_thread.start()
-    plan_t = coder_device.plan_to_torch(
-        coder_device.LanePlan(tables, bank), mid.device)
+    plan = coder_device.LanePlan(tables, bank)
+    plan_t = coder_device.plan_to_torch(plan, mid.device)
 
     lane_counts = counts[first:]
+    ctrip = None
+    if clusters is not None:
+        # the cluster-id segment: the exact host replay of the cluster-id
+        # model, one (cum_lo, cum_hi, total) triple per line of a lane
+        ctrip = np.zeros((len(lane_counts), max(lane_counts), 3),
+                         dtype=np.uint32)
+        for w in range(len(lane_counts)):
+            lo, hi = int(offs[first + w]), int(offs[first + w + 1])
+            ctrip[w, : hi - lo] = rt.replay_model(
+                plan.cluster_init_counts, plan.cluster_init_total,
+                clusters[lo:hi])
     tim: dict = {}
     try:
         lane_pays, flags = coder_device.encode_lanes_raw(
-            plan_t, mid, qs, lane_counts, int(offs[first]), timings=tim)
+            plan_t, mid, qs, lane_counts, int(offs[first]), ctrip,
+            timings=tim)
     finally:
         if warmup_thread is not None:
             warmup_thread.join()
@@ -221,7 +250,8 @@ def _code_shards(tables, data, data_t, mid, qs, qv, states, counts, offs,
                                  dtype=np.uint32),
             np.ascontiguousarray(qs[:, lo:hi].cpu().numpy(),
                                  dtype=np.uint8),
-            None, hi - lo, init_bank=bank)
+            clusters[lo:hi] if clusters is not None else None, hi - lo,
+            init_bank=bank)
 
     t2 = time.perf_counter()
     if want_recon:

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the device time goes in qvz_tpu_torch's encode, on one GPU.
 
-    python3 scripts/profile_torch_encode.py [--no-prime]
+    python3 scripts/profile_torch_encode.py [--no-prime] [-c K]
 
 Encodes the input of chip_smoke.py (1,000,000 x 100, seed 42, -f 0.5,
---shards 0) once to warm up, then once under torch.profiler. Prints the
+--shards 0, -c K -T 4 with K = 1 by default) once to warm up, then once
+under torch.profiler. Prints the
 wall time, the union of the device's activity (kernels and copies), the
 idle share and the device time by kernel name. The profiler's own cost
 is in these numbers; the end-to-end metric comes from chip_smoke.py,
@@ -23,6 +24,7 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--no-prime", action="store_true")
+    ap.add_argument("-c", dest="clusters", type=int, default=1)
     args = ap.parse_args()
 
     import torch
@@ -45,8 +47,9 @@ def main() -> int:
     dist = make_matrix(DISTORTION_MSE)
 
     def run():
-        return encode(data, dist, well_state=WellState.debug(), shards=0,
-                      prime=not args.no_prime, want_recon=False,
+        return encode(data, dist, n_clusters=args.clusters,
+                      cluster_threshold=4.0, well_state=WellState.debug(),
+                      shards=0, prime=not args.no_prime, want_recon=False,
                       device="cuda")
 
     run()
@@ -69,7 +72,8 @@ def main() -> int:
     busy /= 1e6
     print(f"card: {smi()}")
     phases = {k: round(v, 4) for k, v in out.stats.phase_seconds.items()}
-    print(f"prime={not args.no_prime}: wall {wall:.4f} s (profiler on); "
+    print(f"-c {args.clusters} prime={not args.no_prime}: wall "
+          f"{wall:.4f} s (profiler on); "
           f"phases {phases}")
     if not spans:
         print("device time: not measured (the profiler saw no device "

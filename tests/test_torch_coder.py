@@ -148,6 +148,96 @@ def test_encode_lanes_reference_matches_host_coder():
         lo += cnt
 
 
+def _clustered(n, cols, n_cl, seed, base):
+    """Tables of n_cl clusters, host-quantized (mid, qs) of every line,
+    the cluster ids, and the bank primed by the first `base` lines."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(20, 45, size=(n, 1))
+    steps = rng.integers(-3, 4, size=(n, cols - 1))
+    data = np.clip(np.concatenate([start, steps], 1).cumsum(1), 0,
+                   71).astype(np.uint8)
+    clusters = rng.integers(0, n_cl, size=n).astype(np.uint8)
+    c0, cond = rt.stats_host(data, clusters, n_cl)
+    tables = rt.Design(c0, cond, MODE_RATIO, 0.5,
+                       make_matrix(DISTORTION_MSE)).tables()
+    ws = WellState.debug()
+    words = np.asarray(ws.state, dtype=np.uint32)[
+        [(ws.n + i) & 31 for i in range(32)]]
+    md, qs, _, _ = rt.quantize_colmajor(
+        tables, np.ascontiguousarray(data.T), clusters, words)
+    bank = (rt.bank_from_stream(tables, md[:, :base], qs[:, :base],
+                                clusters[:base], base) if base else None)
+    return tables, md, qs, clusters, bank
+
+
+def _triples(plan, clusters, lane_counts, base):
+    """The cluster-id segment's (W, L, 3) triples, as qvz_tpu's encode
+    builds them (pad steps (0, 1, 1))."""
+    ct = np.zeros((len(lane_counts), max(lane_counts), 3), dtype=np.uint32)
+    ct[:, :, 1:] = 1
+    lo = base
+    for w, cnt in enumerate(lane_counts):
+        ct[w, :cnt] = rt.replay_model(plan.cluster_init_counts,
+                                      plan.cluster_init_total,
+                                      clusters[lo:lo + cnt])
+        lo += cnt
+    return ct
+
+
+@pytest.mark.parametrize("prime", [True, False], ids=["prime", "noprime"])
+def test_cluster_segment_matches_jax_and_host(coder, prime):
+    n, cols, n_cl = 1003, 7, 3
+    base = 100 if prime else 0
+    tables, md, qs, clusters, bank = _clustered(n, cols, n_cl, 31, base)
+    lane_counts = _lanes(n, base, 228)
+    assert lane_counts[-1] < lane_counts[0]      # ragged last lane
+    plan, jplan = cd.LanePlan(tables, bank), jcd.LanePlan(tables, bank)
+    ct = _triples(plan, clusters, lane_counts, base)
+    want = jcd.encode_lanes_raw(
+        jplan, jnp.asarray(md.astype(np.int32)),
+        jnp.asarray(qs.astype(np.int32)), lane_counts, base, ct)
+    got = cd.encode_lanes_raw(
+        cd.plan_to_torch(plan, "cpu"), torch.from_numpy(md.astype(np.int32)),
+        torch.from_numpy(qs.astype(np.int32)), lane_counts, base, ct)
+    assert not got[1].any()
+    _assert_same(want, got)
+    lo = base
+    for w, cnt in enumerate(lane_counts):
+        host = rt.encode_precomputed_colmajor(
+            tables, np.ascontiguousarray(md[:, lo:lo + cnt]),
+            np.ascontiguousarray(qs[:, lo:lo + cnt]), clusters[lo:lo + cnt],
+            cnt, init_bank=bank)
+        assert got[0][w] == host, f"lane {w}"
+        lo += cnt
+
+
+@pytest.mark.parametrize("prime", [True, False], ids=["bank", "ones"])
+def test_cluster_plan_matches_jax(prime):
+    tables, md, qs, clusters, bank = _clustered(600, 6, 4, 8,
+                                                80 if prime else 0)
+    a, b = jcd.LanePlan(tables, bank), cd.LanePlan(tables, bank)
+    assert np.array_equal(a.totals, b.totals)
+    assert np.array_equal(a.cluster_init_counts, b.cluster_init_counts)
+    assert a.cluster_init_total == b.cluster_init_total
+    assert len(b.cluster_init_counts) == 4
+    assert b.cluster_init_total == b.cluster_init_counts.sum()
+    for key in ("init_counts_cols", "slot_base", "cards", "col_slots"):
+        assert np.array_equal(getattr(a, key), getattr(b, key)), key
+
+
+def test_cluster_triples_are_checked():
+    tables, md, qs, clusters, _ = _clustered(300, 4, 2, 3, 0)
+    plan_t = cd.plan_to_torch(cd.LanePlan(tables, None), "cpu")
+    m = torch.from_numpy(md.astype(np.int32))
+    q = torch.from_numpy(qs.astype(np.int32))
+    with pytest.raises(ValueError, match="cluster_triples"):
+        cd.code_lanes(plan_t, m, q, [150, 150], 0,
+                      np.zeros((2, 100, 3), dtype=np.uint32))
+    with pytest.raises(ValueError, match="cluster_triples"):
+        cd.code_lanes(plan_t, m, q, [150, 150], 0,
+                      np.zeros((2, 150, 3), dtype=np.int64))
+
+
 @pytest.mark.parametrize("prime", [True, False], ids=["bank", "ones"])
 def test_lane_plan_matches_jax(prime):
     tables, md, qs = _streams(400, 7, seed=2)
@@ -205,4 +295,21 @@ def test_lane_coder_kernel_matches_reference():
         cd.plan_to_torch(cd.LanePlan(tables, bank), "cuda"),
         torch.from_numpy(md.astype(np.int32)).cuda(),
         torch.from_numpy(qs.astype(np.int32)).cuda(), lane_counts, 0)
+    _assert_same(want, got)
+
+
+@pytest.mark.cuda
+def test_lane_coder_kernel_codes_the_cluster_segment():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 has no CPU mode)")
+    tables, md, qs, clusters, bank = _clustered(1003, 7, 3, 31, 100)
+    lane_counts = _lanes(1003, 100, 228)
+    plan = cd.LanePlan(tables, bank)
+    ct = _triples(plan, clusters, lane_counts, 100)
+    m = torch.from_numpy(md.astype(np.int32))
+    q = torch.from_numpy(qs.astype(np.int32))
+    want = cd.encode_lanes_raw(cd.plan_to_torch(plan, "cpu"), m, q,
+                               lane_counts, 100, ct)
+    got = cd.encode_lanes_raw(cd.plan_to_torch(plan, "cuda"), m.cuda(),
+                              q.cuda(), lane_counts, 100, ct)
     _assert_same(want, got)

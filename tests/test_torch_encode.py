@@ -1,7 +1,8 @@
 """qvz_tpu_torch's QVZ2 encode on the CPU (the kernels' plain versions)
 against qvz_tpu: containers byte-equal to the device-coder path and the
-host path for pinned shard counts, priming on and off; reconstructions
-equal to the C reference's golden .u files; the CLI round trip."""
+host path for pinned shard counts, priming on and off, one cluster and
+-c 3/-c 4; reconstructions equal to the C reference's golden .u files;
+the CLI round trips."""
 
 import os
 import re
@@ -111,6 +112,84 @@ def test_recon_equals_golden(golden_dir, name, inp, shards):
     assert out.tobytes() == golden_u
 
 
+@pytest.mark.parametrize("prime", [True, False], ids=["prime", "noprime"])
+@pytest.mark.parametrize("shards", [8, 64])
+@pytest.mark.parametrize("n_clusters", [3, 4])
+def test_clustered_encode_matches_qvz_tpu(small_warmup, n_clusters, shards,
+                                          prime):
+    data = _data(1300, 8, seed=shards + n_clusters)
+    kw = dict(n_clusters=n_clusters, cluster_threshold=4.0, shards=shards,
+              prime=prime)
+    got = port.encode(data, DIST, well_state=WellState.debug(),
+                      device="cpu", **kw)
+    host = _jax_encode(data, False, **kw)
+    assert got.compressed == host.compressed
+    assert np.array_equal(got.clusters, host.clusters)
+    assert len(np.unique(got.clusters)) == n_clusters
+    assert np.array_equal(got.reconstructed, host.reconstructed)
+    out = host_decode.decode(got.compressed)
+    assert np.array_equal(out[:, :8], got.reconstructed + 33)
+    assert got.stats.rate == host.stats.rate
+    assert f"{got.stats.distortion:.4f}" == f"{host.stats.distortion:.4f}"
+    assert got.stats.phase_seconds["cluster"] > 0.0
+    assert got.stats.device_seconds["cluster"] > 0.0
+
+
+def test_clustered_encode_matches_device_path(small_warmup):
+    """-c 3 -T 0 against qvz_tpu's device path (XLA k-means, statistics,
+    quantize and lane coder), with --shards 0."""
+    data = _data(1000, 36, seed=9)
+    kw = dict(n_clusters=3, cluster_threshold=0.0, shards=0)
+    got = port.encode(data, DIST, well_state=WellState.debug(),
+                      device="cpu", want_recon=False, **kw)
+    dev = _jax_encode(data, True, want_recon=False, **kw)
+    assert got.compressed == dev.compressed
+    assert np.array_equal(got.clusters, dev.clusters)
+
+
+# golden name, input, clusters, ratio, shards
+GOLDEN_CLUSTERED = [("c3_f05", "small.in", 3, 0.5, 64),
+                    ("med_c4", "med.in", 4, 0.4, 200)]
+
+
+@pytest.mark.parametrize("name,inp,n_clusters,ratio,shards",
+                         GOLDEN_CLUSTERED,
+                         ids=[g[0] for g in GOLDEN_CLUSTERED])
+def test_clustered_recon_equals_golden(golden_dir, name, inp, n_clusters,
+                                       ratio, shards):
+    data = load_quality_file(str(golden_dir / inp))
+    got = port.encode(data, DIST, n_clusters=n_clusters, mode=MODE_RATIO,
+                      ratio=ratio, well_state=WellState.debug(),
+                      shards=shards, device="cpu")
+    golden_u = (golden_dir / f"{name}.u").read_bytes()
+    recon = np.frombuffer(golden_u, np.uint8).reshape(
+        data.shape[0], data.shape[1] + 1)[:, :-1] - 33
+    assert np.array_equal(got.reconstructed, recon)
+    dist = (golden_dir / f"{name}.stats").read_text().split(",")[3]
+    assert f"{got.stats.distortion:.4f}" == dist.strip()
+    host = _jax_encode(data, False, n_clusters=n_clusters, ratio=ratio,
+                       shards=shards)
+    assert got.compressed == host.compressed
+    assert host_decode.decode(got.compressed).tobytes() == golden_u
+
+
+def test_cli_clustered_round_trip(golden_dir, tmp_path):
+    src = golden_dir / "small.in"
+    q, u, x = tmp_path / "out.q", tmp_path / "recon.u", tmp_path / "dec"
+    r = _cli("-f", "0.5", "-c", "3", "-T", "4", "--shards", "8",
+             "--debug-seed", "--device", "cpu", "-s", "-u", str(u),
+             str(src), str(q), cwd=tmp_path)
+    assert r.returncode == 0, r.stdout + r.stderr
+    golden = (golden_dir / "c3_f05.stats").read_text().split(",")
+    assert r.stdout.split(",")[3] == golden[3]
+    assert cli.main(["qvz_tpu_torch", "-x", str(q), str(x)]) == 0
+    assert x.read_bytes() == u.read_bytes()
+    assert u.read_bytes() == (golden_dir / "c3_f05.u").read_bytes()
+    host = _jax_encode(load_quality_file(str(src)), False, n_clusters=3,
+                       shards=8)
+    assert q.read_bytes() == host.compressed
+
+
 def test_conditional_counts_match_jax_and_host():
     data = _data(3000, 9, seed=4)
     clusters = (np.arange(3000) % 3).astype(np.uint8)
@@ -128,9 +207,8 @@ def test_conditional_counts_match_jax_and_host():
                           np.bincount(data[:, 0], minlength=72))
 
 
-@pytest.mark.parametrize("kw", [dict(n_clusters=2), dict(shards=1),
-                                dict(reuse_blocks=b"")],
-                         ids=["clusters", "v1", "reuse"])
+@pytest.mark.parametrize("kw", [dict(shards=1), dict(reuse_blocks=b"")],
+                         ids=["v1", "reuse"])
 def test_outside_the_slice_raises(kw):
     data = _data(100, 4, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -162,9 +240,9 @@ def test_cli_round_trip(golden_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--hosts", "2"], ["--streaming"],
-                                   ["--reuse-books", "x.q"], ["-c", "3"],
+                                   ["--reuse-books", "x.q"],
                                    ["--shards", "1"]],
-                         ids=["hosts", "streaming", "reuse", "clusters", "v1"])
+                         ids=["hosts", "streaming", "reuse", "v1"])
 def test_cli_flags_outside_the_slice(golden_dir, tmp_path, capsys, flags):
     rc = cli.main(["qvz_tpu_torch", *flags, "--device", "cpu",
                    str(golden_dir / "tiny.in"), str(tmp_path / "o")])
