@@ -4,15 +4,17 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 Drives the port's main paths, the device QVZ2 encode with one cluster
-and with k-means clustering (-c 3 -T 4), at a full-size input: 1,000,000
-reads x 100 columns of Illumina-like quality scores made from seed 42,
--f 0.5, MSE, --shards 0 (the device lane count), priming on and off, the
-debug WELL seed. Phases:
+and with k-means clustering (-c 3 -T 4) and the device decode of their
+containers, at a full-size input: 1,000,000 reads x 100 columns of
+Illumina-like quality scores made from seed 42, -f 0.5, MSE, --shards 0
+(the device lane count), priming on and off, the debug WELL seed.
+Phases:
 
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc
-  1. build the four kernels (csrc/quantize.cu K1, csrc/coder.cu K2,
-     csrc/hist.cu K3, csrc/kmeans.cu K4) from the sources for sm_90a, one
-     nvcc per source in parallel, with the ptxas report
+  1. build the five kernels (csrc/quantize.cu K1, csrc/coder.cu K2,
+     csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5) from the
+     sources for sm_90a, one nvcc per source in parallel, with the ptxas
+     report
   2. the input; device statistics (K3, one cluster) checked equal to the
      host C++ counts; codebook design
   3. K1 against its plain PyTorch version at the full shape: element-equal
@@ -39,6 +41,19 @@ debug WELL seed. Phases:
  10. the end-to-end encode, -c 3 -T 4, median of 3 runs without -u, primed
      and unprimed: checked as in 5 against qvz_tpu's host encode with
      n_clusters=3; hist, kmeans, quantize and coder launched by the encode
+ 11. K5 against its plain version on the lanes of the four containers of
+     phases 5 and 10: on the first 2 columns of every lane (the plain
+     loop over all 100 columns would take about a minute each) the rows,
+     the final (l, u, t, bit position) and the flags equal; the kernel's
+     time also over all columns
+ 12. the end-to-end decode of those containers through
+     qvz_tpu_torch.pipeline.decode.decode(device="cuda"), median of 3
+     runs beside qvz_tpu's host decoder in the same call: byte-equal to
+     it and to the encode's -u reconstruction + 33, no lane flagged (K2
+     flagged none, and the flags are the encode's own rescale
+     condition), the decoder launched by the decodes
+ 13. 300,000 x 2 at --shards 2, unprimed, whose two lanes reach the
+     rescale: flagged, decoded again on the host, byte-equal
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns. Every check that fails raises, so the script exits
@@ -311,6 +326,8 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
                     "equal")
         phases = {k: round(v, 6) for k, v in fast.stats.phase_seconds.items()}
         res["e2e"][prime] = secs
+        res.setdefault("containers", {})[f"-c 3 prime={prime}"] = (
+            out.compressed, out.reconstructed)
         print(f"[10] -c 3 prime={prime}: {len(ref.compressed)} B container "
               f"byte-equal, decoded equal; encode median of 3 {secs:.4f} s "
               f"= {mb / secs:.1f} MB/s (runs {[round(r, 4) for r in runs]}"
@@ -323,6 +340,118 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
     for name in ("hist", "kmeans", "quantize", "coder"):
         require(res["launches"].get(name, 0) >= 1,
                 f"the -c 3 encode launched {name}")
+    return res
+
+
+def decode_phases(torch, np, containers, dist) -> dict:
+    """Phases 11-13: the device decode of the four containers of phases 5
+    and 10, and a container whose lanes reach the rescale. Returns K5's
+    error and times, the decodes' medians and their kernel launches."""
+    from qvz_tpu.ops.well import WellState
+    from qvz_tpu.pipeline import decode as host_decode
+    from qvz_tpu.pipeline import encode as host_encode
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.ops import decoder_device as dd
+    from qvz_tpu_torch.pipeline import decode as port
+
+    res = {"err": 0, "ms": {}, "plain_ms": {}, "all_ms": {}, "e2e": {}}
+
+    # -- 11. K5 against its plain version, on a 2-column prefix ------------
+    for name, (comp, _) in containers.items():
+        lanes = port.prepare_lanes(comp, "cuda")
+        n, cols = lanes.draws_t.shape[1], lanes.dplan_t["columns"]
+        outs = {}
+
+        def run(fn, key, cols_run=2):
+            out = torch.zeros((n, cols + 1), dtype=torch.uint8,
+                              device="cuda")
+            outs[key] = (fn(lanes.dplan_t, lanes.pays, lanes.draws_t,
+                            lanes.cl, lanes.lane_counts, 0, lanes.starts,
+                            out, 33, cols_run), out)
+
+        def kernel():
+            run(dd.decode_lanes_t, "kernel")
+
+        def plain():
+            run(dd.decode_lanes_reference, "plain")
+
+        k5, k5_plain, _, _ = in_turns(kernel, plain, torch, runs=2)
+        (fk, ok), (fp, op) = outs["kernel"], outs["plain"]
+        err = max(int((fk - fp).abs().max()),
+                  int((ok.long() - op.long()).abs().max()))
+        require(err == 0 and torch.equal(fk, fp) and torch.equal(ok, op),
+                f"{name}: K5 rows, final (l, u, t, bit position) and flags "
+                "equal the plain version's on 2 columns")
+        all_ms = statistics.median(event_ms(
+            lambda: run(dd.decode_lanes_t, "all", None), torch)
+            for _ in range(3))
+        res["err"] = max(res["err"], err)
+        res["ms"][name], res["plain_ms"][name] = k5, k5_plain
+        res["all_ms"][name] = all_ms
+        steps = cols * max(lanes.lane_counts)
+        print(f"[11] K5 {name}: {len(lanes.lane_counts)} lanes, 2 columns "
+              f"equal to the plain version (max abs err {err}, "
+              f"{int((fk[:, 4] != 0).sum())} flagged lanes); 2 columns: "
+              f"kernel {k5:.3f} ms, plain {k5_plain:.3f} ms (median of 2, "
+              f"in turns); all {cols} columns ({steps} steps a lane): "
+              f"kernel {all_ms:.3f} ms (median of 3)", flush=True)
+        del lanes, outs
+
+    # -- 12. the end-to-end decode ------------------------------------------
+    _build.LAUNCHES.clear()
+    for name, (comp, recon) in containers.items():
+        n, cols = recon.shape
+        t = time.perf_counter()
+        host = host_decode.decode(comp, device=False)
+        host_secs = time.perf_counter() - t
+        require(np.array_equal(host[:, :cols], recon + 33),
+                f"{name}: the host decoder gives the encode's -u "
+                "reconstruction")
+        st = {}
+        got = port.decode(comp, device="cuda", stats=st)
+        require(np.array_equal(got, host),
+                f"{name}: decode(device='cuda') byte-equal to the host "
+                "decoder")
+        require(st["fallback_lanes"] == 0,
+                f"{name}: no lane flagged ({st['fallback_lanes']} of "
+                f"{st['lanes']})")
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            port.decode(comp, device="cuda", stats=st)
+            runs.append(time.perf_counter() - t)
+        secs = statistics.median(runs)
+        mb = n * (cols + 1) / 1e6
+        res["e2e"][name] = (secs, host_secs)
+        phases = {k: round(v, 6) for k, v in st["phase_seconds"].items()}
+        print(f"[12] decode {name}: byte-equal to the host decoder and the "
+              f"-u reconstruction, {st['lanes']} lanes, 0 flagged; median "
+              f"of 3 {secs:.4f} s = {mb / secs:.1f} MB/s (runs "
+              f"{[round(r, 4) for r in runs]}); host decoder {host_secs:.4f}"
+              f" s = {mb / host_secs:.1f} MB/s; phases "
+              f"{json.dumps(phases)}", flush=True)
+    res["launches"] = dict(_build.LAUNCHES)
+    print(f"[12] kernel launches by the decodes: {res['launches']}")
+    require(res["launches"].get("decoder", 0) >= 1,
+            "the decode launched the decoder")
+
+    # -- 13. lanes that reach the rescale fall back to the host --------------
+    rng = np.random.default_rng(1)
+    data = np.clip(30 + rng.integers(-1, 2, size=(300_000, 2)).cumsum(1), 0,
+                   71).astype(np.uint8)
+    comp = host_encode.encode(data, dist, well_state=WellState.debug(),
+                              use_jax=False, shards=2,
+                              prime=False).compressed
+    st = {}
+    got = port.decode(comp, device="cuda", stats=st)
+    require(st["fallback_lanes"] >= 1, "a lane reaching the rescale is "
+            "flagged")
+    require(np.array_equal(got, host_decode.decode(comp, device=False)),
+            "the fallback decode is byte-equal to the host decoder")
+    print(f"[13] 300000 x 2, 2 lanes: {st['fallback_lanes']} flagged and "
+          f"decoded again on the host, byte-equal; phases "
+          f"{json.dumps({k: round(v, 6) for k, v in st['phase_seconds'].items()})}",
+          flush=True)
     return res
 
 
@@ -476,6 +605,7 @@ def main() -> int:
     mb = n * (cols + 1) / 1e6
     _build.LAUNCHES.clear()
     e2e = {}
+    containers = {}
     for prime in (True, False):
         kw = dict(well_state=WellState.debug(), shards=0, prime=prime)
         out = port.encode(data, dist, want_recon=True, device="cuda", **kw)
@@ -505,6 +635,8 @@ def main() -> int:
                     f"prime={prime}: -s rate, distortion and size equal")
         phases = {k: round(v, 6) for k, v in fast.stats.phase_seconds.items()}
         e2e[prime] = secs
+        containers[f"-c 1 prime={prime}"] = (out.compressed,
+                                             out.reconstructed)
         print(f"[5] prime={prime}: {len(ref.compressed)} B container "
               f"byte-equal, decoded equal; encode median of 5 {secs:.4f} s "
               f"= {mb / secs:.1f} MB/s (runs {[round(r, 4) for r in runs]}"
@@ -521,6 +653,11 @@ def main() -> int:
     clus = clustered_phases(torch, np, data, dist, card)
     for name, k in clus["launches"].items():
         launches[name] = launches.get(name, 0) + k
+    containers.update(clus.pop("containers"))
+
+    # -- 11.-13. the device decode -------------------------------------------
+    dec = decode_phases(torch, np, containers, dist)
+    launches["decoder"] = dec["launches"]["decoder"]
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -546,11 +683,23 @@ def main() -> int:
          "replaces": "qvz_tpu/ops/pallas_kernels.py:33",
          "launches": launches["kmeans"], "max_abs_err": clus["k4_err"],
          "ms": clus["k4_ms"], "plain_ms": clus["k4_plain_ms"]},
+        {"name": "decoder", "route": "cuda",
+         "source": "qvz_tpu_torch/csrc/decoder.cu",
+         "replaces": "qvz_tpu/ops/decoder_pallas.py:149",
+         "launches": launches["decoder"], "max_abs_err": dec["err"],
+         "ms": dec["ms"]["-c 1 prime=True"],
+         "plain_ms": dec["plain_ms"]["-c 1 prime=True"]},
     ]
     print(f"e2e encode MB/s: -c 1 prime on {mb / e2e[True]:.1f}, "
           f"prime off {mb / e2e[False]:.1f}; -c 3 prime on "
           f"{mb / clus['e2e'][True]:.1f}, prime off "
           f"{mb / clus['e2e'][False]:.1f}")
+    print("e2e decode MB/s (host decoder): " + "; ".join(
+        f"{name} {mb / s:.1f} ({mb / h:.1f})"
+        for name, (s, h) in dec["e2e"].items()))
+    print("K5 over the 2-column prefix in the kernels line; over all "
+          "columns: " + ", ".join(f"{name} {ms:.3f} ms"
+                                  for name, ms in dec["all_ms"].items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,8 +32,9 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Kernel launches per wrapper ("quantize", "coder", "hist", "kmeans"): each
-# wrapper adds one where it launches its kernel, and nowhere else.
+# Kernel launches per wrapper ("quantize", "coder", "hist", "kmeans",
+# "decoder"): each wrapper adds one where it launches its kernel, and
+# nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -119,6 +120,10 @@ def load() -> ctypes.CDLL:
     lib.qvz_hist.restype = ctypes.c_int
     lib.qvz_kmeans_step.argtypes = [p, i64, i32, p, i32, i32, p, p, p, p]
     lib.qvz_kmeans_step.restype = ctypes.c_int
+    lib.qvz_decode_lanes.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32,
+                                     p, i32, p, p, p, p, p, p, i32, p, p,
+                                     p, p, i64, i32, p, p]
+    lib.qvz_decode_lanes.restype = ctypes.c_int
     _lib = lib
     return lib
 

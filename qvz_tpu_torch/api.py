@@ -3,10 +3,11 @@
     import qvz_tpu_torch.api as qvz
 
     stats = qvz.compress("reads.qual", "reads.q", shards=0, device="cuda")
-    qvz.decompress("reads.q", "reads.dec")
+    qvz.decompress("reads.q", "reads.dec", device="cuda")
 
 Compression runs the device QVZ2 encode (pipeline/encode.py);
-decompression is qvz_tpu's shared host decoder.
+decompression the device QVZ2 decode (pipeline/decode.py), which sends
+containers without lanes (v1, single-shard) to qvz_tpu's host decoder.
 """
 
 from __future__ import annotations
@@ -41,10 +42,10 @@ def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
     return out.compressed, out.stats
 
 
-def decompress_bytes(container: bytes) -> bytes:
-    """Decompress a v1 or QVZ2 container to quality text (host decoder)."""
-    from qvz_tpu.pipeline import decode as dec_mod
-    return dec_mod.decode(container, device=False).tobytes()
+def decompress_bytes(container: bytes, device: str = "cuda") -> bytes:
+    """Decompress a v1 or QVZ2 container to quality text."""
+    from qvz_tpu_torch.pipeline import decode as dec_mod
+    return dec_mod.decode(container, device=device).tobytes()
 
 
 def compress(input_path: str, output_path: str, *, hosts: int = 1,
@@ -62,9 +63,9 @@ def compress(input_path: str, output_path: str, *, hosts: int = 1,
     return stats
 
 
-def decompress(input_path: str, output_path: str) -> int:
-    """File-to-file decompression with the host decoder. Returns the
-    number of lines."""
-    from qvz_tpu.pipeline import decode as dec_mod
+def decompress(input_path: str, output_path: str,
+               device: str = "cuda") -> int:
+    """File-to-file decompression. Returns the number of lines."""
+    from qvz_tpu_torch.pipeline import decode as dec_mod
     return dec_mod.decode_file_to_file(input_path, output_path,
-                                       device=False)
+                                       device=device)

@@ -1,5 +1,5 @@
 """Command-line interface of the port, flag-compatible with reference qvz
-for the device QVZ2 encode.
+for the device QVZ2 encode and decode.
 
 Usage: python -m qvz_tpu_torch (options) [input file] [output file]
 
@@ -8,9 +8,11 @@ Flags as ``python -m qvz_tpu`` (src/main.c:166-184): -q/-x/-f/-r/-d/-D/
 default, picks the device lane count; N >= 2 pins it), --no-prime, plus
 --device cuda|cpu (default cuda), which takes the place of --jax.
 -c K > 1 clusters the reads with k-means on the device first.
--x decodes with qvz_tpu's shared host decoder. --shards 1, --hosts,
---streaming and --reuse-books are not ported yet and stop with an error
-that names the ROADMAP item.
+-x decodes a column-major QVZ2 container's lanes on --device (the lane
+decoder K5, as ``python -m qvz_tpu -x --jax`` decodes them on the TPU);
+v1 and other containers without lanes decode on qvz_tpu's host decoder.
+--shards 1, --hosts, --streaming and --reuse-books are not ported yet
+and stop with an error that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def usage(name: str) -> None:
     print("   --shards N   : QVZ2 container with N parallel streams (0 = pick")
     print("                  for the device, the default; N >= 2 pins it)")
     print("   --no-prime   : Disable QVZ2 shard priming")
-    print("   --device D   : cuda (default) or cpu (the kernels' plain versions)")
+    print("   --device D   : cuda (default) or cpu (the kernels' plain versions);")
+    print("                  with -x, where QVZ2 shards decode as lanes")
 
 
 def main(argv=None) -> int:
@@ -180,10 +183,10 @@ def _preamble(opts, extract, input_name, output_name) -> None:
 def _run(opts, extract, input_name, output_name) -> int:
     t0 = time.perf_counter()
     if extract:
-        from qvz_tpu.pipeline import decode as dec_mod
+        from qvz_tpu_torch.pipeline import decode as dec_mod
         n = dec_mod.decode_file_to_file(input_name, output_name,
                                         verbose=opts["verbose"],
-                                        device=False)
+                                        device=opts["device"])
         if opts["verbose"]:
             print(f"Decoded {n} lines in "
                   f"{time.perf_counter() - t0:f} seconds.")

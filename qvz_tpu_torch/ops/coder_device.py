@@ -52,8 +52,9 @@ class LanePlan:
     """Per-(tables, init bank) slot layout of the lane coder (copied from
     ``qvz_tpu.ops.coder_device.LanePlan``, the fields the kernel reads).
 
-    Column c's models (ids 1 + 2*(pair_base(cl, c) + ctx) + choice) get
-    consecutive slot ranges; slot = slot_base[model] + symbol indexes
+    Column c's models (ids 1 + 2*(pair_base(cl, c) + ctx) + choice,
+    col_models[c]) get consecutive slot ranges; slot = slot_base[model]
+    + symbol indexes
     that model's count inside the column. S is the largest slot count
     of any column. totals are the init bank's model totals; the
     cluster-id model (id 0) starts from cluster_init_counts and
@@ -105,6 +106,7 @@ class LanePlan:
         self.S = S
         self.columns = cols
         self.n_clusters = n_cl
+        self.col_models = col_models
         self.init_counts_cols = init_counts_cols
         self.slot_base = slot_base
         self.cards = cards.astype(np.int32)

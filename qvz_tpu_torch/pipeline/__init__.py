@@ -1,1 +1,1 @@
-"""The device QVZ2 encode pipeline."""
+"""The device QVZ2 encode and decode pipelines."""

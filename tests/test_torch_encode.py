@@ -182,7 +182,8 @@ def test_cli_clustered_round_trip(golden_dir, tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     golden = (golden_dir / "c3_f05.stats").read_text().split(",")
     assert r.stdout.split(",")[3] == golden[3]
-    assert cli.main(["qvz_tpu_torch", "-x", str(q), str(x)]) == 0
+    assert cli.main(["qvz_tpu_torch", "-x", "--device", "cpu", str(q),
+                     str(x)]) == 0
     assert x.read_bytes() == u.read_bytes()
     assert u.read_bytes() == (golden_dir / "c3_f05.u").read_bytes()
     host = _jax_encode(load_quality_file(str(src)), False, n_clusters=3,
@@ -215,8 +216,34 @@ def test_outside_the_slice_raises(kw):
         port.encode(data, DIST, device="cpu", **kw)
 
 
-def _cli(*args, cwd):
-    return subprocess.run([sys.executable, "-m", "qvz_tpu_torch", *args],
+def test_cli_decode_matches_qvz_tpu(small_warmup, tmp_path):
+    """Encode with the port, decode with -x --device cpu (the lanes on
+    K5's plain version): the bytes of python -m qvz_tpu -x, and of the
+    API."""
+    from qvz_tpu_torch import api
+
+    data = _data(1300, 8, seed=14)
+    src, q = tmp_path / "in", tmp_path / "out.q"
+    src.write_bytes(np.concatenate(
+        [data + 33, np.full((1300, 1), 10, np.uint8)], 1).tobytes())
+    for kw in (["--shards", "8"], ["--shards", "6", "-c", "3",
+                                    "--no-prime"]):
+        assert cli.main(["qvz_tpu_torch", *kw, "--debug-seed", "--device",
+                         "cpu", str(src), str(q)]) == 0
+        x, y = tmp_path / "port.dec", tmp_path / "host.dec"
+        assert cli.main(["qvz_tpu_torch", "-x", "--device", "cpu", str(q),
+                         str(x)]) == 0
+        r = _cli("-x", str(q), str(y), cwd=tmp_path, module="qvz_tpu")
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert x.read_bytes() == y.read_bytes()
+        assert api.decompress_bytes(q.read_bytes(), device="cpu") \
+            == x.read_bytes()
+        assert api.decompress(str(q), str(y), device="cpu") == 1300
+        assert y.read_bytes() == x.read_bytes()
+
+
+def _cli(*args, cwd, module="qvz_tpu_torch"):
+    return subprocess.run([sys.executable, "-m", module, *args],
                           cwd=cwd, capture_output=True, text=True,
                           env={**os.environ, "PYTHONPATH": ROOT + os.pathsep
                                + os.environ.get("PYTHONPATH", "")})
@@ -232,7 +259,8 @@ def test_cli_round_trip(golden_dir, tmp_path):
     assert re.fullmatch(
         r"rate, \d+\.\d{4}, distortion, \d+\.\d{4}, time, \d+\.\d{4}, "
         r"size, \d+ \n", r.stdout)
-    assert cli.main(["qvz_tpu_torch", "-x", str(q), str(x)]) == 0
+    assert cli.main(["qvz_tpu_torch", "-x", "--device", "cpu", str(q),
+                     str(x)]) == 0
     assert x.read_bytes() == u.read_bytes()
     assert u.read_bytes() == (golden_dir / "f05_mse.u").read_bytes()
     host = _jax_encode(load_quality_file(str(src)), False, shards=8)
