@@ -23,8 +23,9 @@ Phases:
   5. the end-to-end encode, -c 1, through
      qvz_tpu_torch.pipeline.encode.encode, timed as the median of 5 runs
      without -u (the phase split is the last run's): the container
-     byte-equal to qvz_tpu's host encode (pure C++, no JAX) for the same
-     shards, priming and seed; decoded by the shared host decoder to the
+     byte-equal to the port's host engine (qvz_tpu_torch.pipeline.host,
+     pure C++, held byte-equal to qvz_tpu's by the CPU tests) for the same
+     shards, priming and seed; decoded by the host decoder to the
      port's reconstruction; -s figures equal; hist, quantize and coder
      launched by the encode itself
   6. K4, one k-means step at K = 3 from seed_centroids, against its plain
@@ -33,34 +34,41 @@ Phases:
      card against the host C++ rt.kmeans_host: equal assignment, means
      and iteration count
   7. K3 against its plain version and rt.stats_host, with one cluster and
-     with the k-means ids of phase 6
+     with the k-means ids of phase 6; torch.bincount over the combined
+     (column, cluster*72 + previous, current) index, timed as K3's library
+     yardstick (the port never calls it)
   8. K1 with the k-means ids against its plain version at the full shape
   9. K2 with the cluster-id segment against its plain version, on the
      segment and the first columns (the plain loop over all 100 columns
      would take another ~50 s); the kernel's time is over all columns
  10. the end-to-end encode, -c 3 -T 4, median of 3 runs without -u, primed
-     and unprimed: checked as in 5 against qvz_tpu's host encode with
+     and unprimed: checked as in 5 against the port's host engine with
      n_clusters=3; hist, kmeans, quantize and coder launched by the encode
  11. K5 against its plain version on the lanes of the four containers of
-     phases 5 and 10: on the first 2 columns of every lane (the plain
-     loop over all 100 columns would take about a minute each) the rows,
-     the final (l, u, t, bit position) and the flags equal; the kernel's
-     time also over all columns
+     phases 5 and 10: on the first 2 columns of every lane the rows, the
+     final (l, u, t, bit position) and the flags equal, and over all
+     columns for the -c 1 primed container (the plain loop takes tens of
+     seconds there); the kernel timed over all columns; the -c 3 lanes
+     start mid-byte after their host cluster-id prologue
  12. the end-to-end decode of those containers through
      qvz_tpu_torch.pipeline.decode.decode(device="cuda"), median of 3
-     runs beside qvz_tpu's host decoder in the same call: byte-equal to
+     runs beside the port's host decoder in the same call: byte-equal to
      it and to the encode's -u reconstruction + 33, no lane flagged (K2
      flagged none, and the flags are the encode's own rescale
      condition), the decoder launched by the decodes
  13. 300,000 x 2 at --shards 2, unprimed, whose two lanes reach the
      rescale: flagged, decoded again on the host, byte-equal
+ 14. K5 over all columns of the four containers at 32, 16, 8, 4, 2 and 1
+     lanes a warp: equal output, median of 3 each
 
 Times are CUDA-event times after a warm-up, kernel and plain version
-measured in turns. Every check that fails raises, so the script exits
-non-zero. The last two lines are the kernels' JSON record and the
-result line {"ok": true, "device": {...}}. Without a CUDA device, or
-without the rest of the repository, the script fails before it prints
-any result.
+measured in turns. Each kernel's bound is the larger of its bytes (each
+input read once, each output written once) over 3.35 TB/s and its int32
+operations over the card's SMs x 64 lanes x top SM clock. Every check
+that fails raises, so the script exits non-zero. The last two lines are
+the kernels' JSON record and the result line {"ok": true, "device":
+{...}}. Without a CUDA device, or without the rest of the repository,
+the script fails before it prints any result.
 """
 
 from __future__ import annotations
@@ -71,6 +79,46 @@ import statistics
 import subprocess
 import sys
 import time
+
+
+# The card's peak rates for the kernels' bounds: device memory at 3.35
+# TB/s (NVIDIA's data sheet for the H100 SXM), and int32 operations at the
+# card's SMs x 64 int32 lanes x its top SM clock (read from the card). The
+# lane coder and decoder do about STEP_OPS int32 operations a step (the
+# model lookup, the count search and update, two products and divisions,
+# the renormalisation; csrc/coder.cu, csrc/decoder.cu).
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+STEP_OPS = 100
+LANES_SWEEP = (32, 16, 8, 4, 2, 1)
+
+
+def int32_ops_per_s(torch) -> float:
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return (torch.cuda.get_device_properties(0).multi_processor_count
+            * INT32_LANES_PER_SM * mhz * 1e6)
+
+
+def bound(nbytes: float, ops: float, ops_rate: float):
+    """(least ms, "bytes" or "operations"): each input read once, each
+    output written once, over the memory rate, against the operations
+    over the int32 rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / ops_rate * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k5_bound(lanes, cols: int, ops_rate: float):
+    """K5 over all columns: the lanes' draws, payloads and cluster ids in,
+    the text rows and states out; STEP_OPS a step."""
+    n = int(sum(lanes.lane_counts))
+    nbytes = (n * cols + int(lanes.pays.lens.sum())
+              + (n if lanes.cl is not None else 0) + n * (cols + 1)
+              + len(lanes.lane_counts) * (4 + 5) * 8)
+    return bound(nbytes, n * cols * STEP_OPS, ops_rate)
 
 
 def require(cond: bool, what: str) -> None:
@@ -125,21 +173,20 @@ def max_err(got, want) -> int:
                for a, b in zip(got, want))
 
 
-def clustered_phases(torch, np, data, dist, card) -> dict:
+def clustered_phases(torch, np, data, dist, card, rate) -> dict:
     """Phases 6-10: the -c 3 -T 4 path. Returns the kernels' errors and
     times, the encodes' medians and the encodes' kernel launches."""
-    from qvz_tpu.constants import MODE_RATIO
-    from qvz_tpu.native import runtime as rt
-    from qvz_tpu.ops.well import WellState
-    from qvz_tpu.pipeline import decode as host_decode
-    from qvz_tpu.pipeline import encode as host_encode
-    from qvz_tpu.spec.kmeans import seed_centroids
     from qvz_tpu_torch import _build
+    from qvz_tpu_torch.constants import MODE_RATIO
+    from qvz_tpu_torch.native import runtime as rt
     from qvz_tpu_torch.ops import coder_device as cd
     from qvz_tpu_torch.ops import kmeans as tk
     from qvz_tpu_torch.ops import quantize as tq
     from qvz_tpu_torch.ops import stats as ts
+    from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
+    from qvz_tpu_torch.pipeline import host
+    from qvz_tpu_torch.spec.kmeans import seed_centroids
 
     K, T = 3, 4.0
     dev = torch.device("cuda")
@@ -182,7 +229,9 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
             and np.array_equal(km_means, h_means) and iters == h_iters,
             "kmeans_cluster on the card equals rt.kmeans_host")
     sizes = np.bincount(clusters, minlength=K).tolist()
-    res.update(k4_err=err, k4_ms=k4, k4_plain_ms=k4_plain)
+    res.update(k4_err=err, k4_ms=k4, k4_plain_ms=k4_plain,
+               k4_bound=bound(n * cols + 4 * n + 16 * K * cols + 8 * K,
+                              3 * n * K * cols, rate))
     print(f"[6] K4 k-means step {n} x {cols}, K={K}: equal (max abs err "
           f"{err}), ties to the lower index; kernel {k4:.3f} ms, plain "
           f"{k4_plain:.3f} ms (median of 5, in turns); kernel {k4_runs}, "
@@ -200,11 +249,11 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
         got = ts.conditional_counts_t(data_t, ids, c)
         want = ts.conditional_counts_reference(data_t, ids, c)
         torch.cuda.synchronize()
-        host = rt.stats_host(data, ids_h, c)
+        counts_h = rt.stats_host(data, ids_h, c)
         err = max(err, max_err(got, want))
         require(all(torch.equal(a, b) for a, b in zip(got, want))
                 and all(np.array_equal(a.cpu().numpy(), b)
-                        for a, b in zip(got, host)),
+                        for a, b in zip(got, counts_h)),
                 f"K3 with {c} clusters equals its plain version and "
                 "rt.stats_host")
         k3_times[c] = in_turns(
@@ -217,6 +266,27 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
               f"{k3_times[c][3]}", flush=True)
     res.update(k3_err=err, k3_ms=k3_times[K][0], k3_plain_ms=k3_times[K][1],
                k3_c1_ms=k3_times[1][0], k3_c1_plain_ms=k3_times[1][1])
+    # the library yardstick: one torch.bincount over the combined
+    # (column, cluster*72 + previous, current) index (the port never calls
+    # it); the index is built outside the timing
+    A = 72
+    idx = ((cl_t.long() * A + data_t[:-1].long()) * A + data_t[1:].long()
+           + torch.arange(cols - 1, device=dev)[:, None] * (K * A * A)
+           ).reshape(-1)
+    lib_cond = torch.bincount(idx, minlength=(cols - 1) * K * A * A)
+    k3_cond = ts.conditional_counts_t(data_t, cl_t, K)[1]
+    require(torch.equal(lib_cond.reshape(cols - 1, K, A, A).permute(
+        1, 0, 2, 3), k3_cond), "torch.bincount gives K3's counts")
+    res["k3_lib_ms"] = statistics.median(event_ms(
+        lambda: torch.bincount(idx, minlength=(cols - 1) * K * A * A),
+        torch) for _ in range(5))
+    res["k3_bound"] = bound(
+        n * cols + n + K * (cols - 1) * A * A * 8 + K * A * 8, n * cols * 4,
+        rate)
+    print(f"[7] torch.bincount over the combined index, C={K}: "
+          f"{res['k3_lib_ms']:.3f} ms (median of 5), equal to K3; K3 bound "
+          f"{res['k3_bound'][0]:.4f} ms ({res['k3_bound'][1]})", flush=True)
+    del idx, lib_cond, k3_cond
 
     # -- 8. K1 with the cluster ids -----------------------------------------
     c0, cond = ts.conditional_counts_t(data_t, cl_t, K)
@@ -224,7 +294,7 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
                        0.5, dist).tables()
     counts, states, offs, prime_on = port.shard_plan(
         n, cols, port.device_lane_count(n), True, WellState.debug())
-    draws = host_encode._shard_draws(states, counts, cols)
+    draws = host._shard_draws(states, counts, cols)
     draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
     tabs = tq.tables_to_torch(tables, dev)
     got = tq.quantize_t_device(tabs, data_t, draws_t, cl_t)
@@ -304,16 +374,15 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
             runs.append(time.perf_counter() - t)
         secs = statistics.median(runs)
         kw["shards"] = port.device_lane_count(n)
-        ref = host_encode.encode(data, dist, use_jax=False,
-                                 want_recon=False, **kw)
+        ref = host.encode(data, dist, want_recon=False, **kw)
         require(out.compressed == ref.compressed,
-                f"-c 3 prime={prime}: container byte-equal to qvz_tpu's "
-                "host encode")
+                f"-c 3 prime={prime}: container byte-equal to the port's "
+                "host engine")
         require(fast.compressed == out.compressed
                 and np.array_equal(out.clusters, ref.clusters),
                 f"-c 3 prime={prime}: repeated encode byte-equal, clusters "
                 "equal")
-        dec = host_decode.decode(out.compressed)
+        dec = host.decode(out.compressed)
         require(np.array_equal(dec[:, :cols], out.reconstructed + 33),
                 f"-c 3 prime={prime}: host decode equals the -u "
                 "reconstruction")
@@ -343,31 +412,31 @@ def clustered_phases(torch, np, data, dist, card) -> dict:
     return res
 
 
-def decode_phases(torch, np, containers, dist) -> dict:
+def decode_phases(torch, np, containers, dist, rate) -> dict:
     """Phases 11-13: the device decode of the four containers of phases 5
     and 10, and a container whose lanes reach the rescale. Returns K5's
     error and times, the decodes' medians and their kernel launches."""
-    from qvz_tpu.ops.well import WellState
-    from qvz_tpu.pipeline import decode as host_decode
-    from qvz_tpu.pipeline import encode as host_encode
     from qvz_tpu_torch import _build
     from qvz_tpu_torch.ops import decoder_device as dd
+    from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import decode as port
+    from qvz_tpu_torch.pipeline import host
 
-    res = {"err": 0, "ms": {}, "plain_ms": {}, "all_ms": {}, "e2e": {}}
+    res = {"err": 0, "ms": {}, "plain_ms": {}, "all_ms": {}, "e2e": {},
+           "sweep": {}}
 
-    # -- 11. K5 against its plain version, on a 2-column prefix ------------
+    # -- 11. K5 against its plain version ------------------------------------
     for name, (comp, _) in containers.items():
         lanes = port.prepare_lanes(comp, "cuda")
         n, cols = lanes.draws_t.shape[1], lanes.dplan_t["columns"]
         outs = {}
 
-        def run(fn, key, cols_run=2):
+        def run(fn, key, cols_run=2, **kw):
             out = torch.zeros((n, cols + 1), dtype=torch.uint8,
                               device="cuda")
             outs[key] = (fn(lanes.dplan_t, lanes.pays, lanes.draws_t,
                             lanes.cl, lanes.lane_counts, 0, lanes.starts,
-                            out, 33, cols_run), out)
+                            out, 33, cols_run, **kw), out)
 
         def kernel():
             run(dd.decode_lanes_t, "kernel")
@@ -385,16 +454,35 @@ def decode_phases(torch, np, containers, dist) -> dict:
         all_ms = statistics.median(event_ms(
             lambda: run(dd.decode_lanes_t, "all", None), torch)
             for _ in range(3))
+        if name.startswith("-c 3"):
+            require(bool((lanes.starts[:, 3] % 8 != 0).any()),
+                    f"{name}: some prologue lanes start mid-byte")
+        steps = cols * max(lanes.lane_counts)
+        line = (f"[11] K5 {name}: {len(lanes.lane_counts)} lanes, 2 columns "
+                f"equal to the plain version (max abs err {err}, "
+                f"{int((fk[:, 4] != 0).sum())} flagged lanes); 2 columns: "
+                f"kernel {k5:.3f} ms, plain {k5_plain:.3f} ms (median of 2, "
+                f"in turns); all {cols} columns ({steps} steps a lane): "
+                f"kernel {all_ms:.3f} ms (median of 3)")
+        if name == "-c 1 prime=True":
+            # the plain version over all columns, once: the kernel's
+            # yardstick at the main path's shape
+            t = time.perf_counter()
+            run(dd.decode_lanes_reference, "plain_all", None)
+            res["plain_all_ms"] = (time.perf_counter() - t) * 1e3
+            (fa, oa), (fpa, opa) = outs["all"], outs["plain_all"]
+            err = max(err, int((fa - fpa).abs().max()),
+                      int((oa.long() - opa.long()).abs().max()))
+            require(err == 0, f"{name}: K5 equals its plain version over "
+                    "all columns")
+            res["bound"] = k5_bound(lanes, cols, rate)
+            line += (f"; plain over all columns {res['plain_all_ms']:.1f} "
+                     f"ms, equal; bound {res['bound'][0]:.4f} ms "
+                     f"({res['bound'][1]})")
+        print(line, flush=True)
         res["err"] = max(res["err"], err)
         res["ms"][name], res["plain_ms"][name] = k5, k5_plain
         res["all_ms"][name] = all_ms
-        steps = cols * max(lanes.lane_counts)
-        print(f"[11] K5 {name}: {len(lanes.lane_counts)} lanes, 2 columns "
-              f"equal to the plain version (max abs err {err}, "
-              f"{int((fk[:, 4] != 0).sum())} flagged lanes); 2 columns: "
-              f"kernel {k5:.3f} ms, plain {k5_plain:.3f} ms (median of 2, "
-              f"in turns); all {cols} columns ({steps} steps a lane): "
-              f"kernel {all_ms:.3f} ms (median of 3)", flush=True)
         del lanes, outs
 
     # -- 12. the end-to-end decode ------------------------------------------
@@ -402,14 +490,14 @@ def decode_phases(torch, np, containers, dist) -> dict:
     for name, (comp, recon) in containers.items():
         n, cols = recon.shape
         t = time.perf_counter()
-        host = host_decode.decode(comp, device=False)
+        want = host.decode(comp)
         host_secs = time.perf_counter() - t
-        require(np.array_equal(host[:, :cols], recon + 33),
+        require(np.array_equal(want[:, :cols], recon + 33),
                 f"{name}: the host decoder gives the encode's -u "
                 "reconstruction")
         st = {}
         got = port.decode(comp, device="cuda", stats=st)
-        require(np.array_equal(got, host),
+        require(np.array_equal(got, want),
                 f"{name}: decode(device='cuda') byte-equal to the host "
                 "decoder")
         require(st["fallback_lanes"] == 0,
@@ -439,19 +527,47 @@ def decode_phases(torch, np, containers, dist) -> dict:
     rng = np.random.default_rng(1)
     data = np.clip(30 + rng.integers(-1, 2, size=(300_000, 2)).cumsum(1), 0,
                    71).astype(np.uint8)
-    comp = host_encode.encode(data, dist, well_state=WellState.debug(),
-                              use_jax=False, shards=2,
-                              prime=False).compressed
+    comp = host.encode(data, dist, well_state=WellState.debug(), shards=2,
+                       prime=False).compressed
     st = {}
     got = port.decode(comp, device="cuda", stats=st)
     require(st["fallback_lanes"] >= 1, "a lane reaching the rescale is "
             "flagged")
-    require(np.array_equal(got, host_decode.decode(comp, device=False)),
+    require(np.array_equal(got, host.decode(comp)),
             "the fallback decode is byte-equal to the host decoder")
     print(f"[13] 300000 x 2, 2 lanes: {st['fallback_lanes']} flagged and "
           f"decoded again on the host, byte-equal; phases "
           f"{json.dumps({k: round(v, 6) for k, v in st['phase_seconds'].items()})}",
           flush=True)
+
+    # -- 14. K5 at each lanes-a-warp setting -------------------------------
+    for name, (comp, _) in containers.items():
+        lanes = port.prepare_lanes(comp, "cuda")
+        n, cols = lanes.draws_t.shape[1], lanes.dplan_t["columns"]
+        first = None
+        for lpw in LANES_SWEEP:
+            out = torch.zeros((n, cols + 1), dtype=torch.uint8,
+                              device="cuda")
+
+            def launch():
+                return dd.decode_lanes_t(
+                    lanes.dplan_t, lanes.pays, lanes.draws_t, lanes.cl,
+                    lanes.lane_counts, 0, lanes.starts, out, 33,
+                    lanes_per_warp=lpw)
+
+            fin = launch()
+            if first is None:
+                first = (fin, out.clone())
+            require(torch.equal(fin, first[0]) and torch.equal(out, first[1]),
+                    f"{name}: K5 at {lpw} lanes a warp equals K5 at "
+                    f"{LANES_SWEEP[0]}")
+            res["sweep"].setdefault(name, {})[lpw] = statistics.median(
+                event_ms(launch, torch) for _ in range(3))
+        print(f"[14] K5 {name} over all columns by lanes a warp (median of "
+              f"3, equal output): " + ", ".join(
+                  f"{k}: {v:.3f} ms" for k, v in res["sweep"][name].items()),
+              flush=True)
+        del lanes, first
     return res
 
 
@@ -467,20 +583,20 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from qvz_tpu.constants import DISTORTION_MSE, MODE_RATIO
-    from qvz_tpu.native import runtime as rt
-    from qvz_tpu.ops.distortion import make_matrix
-    from qvz_tpu.ops.well import WellState
-    from qvz_tpu.pipeline import decode as host_decode
-    from qvz_tpu.pipeline import encode as host_encode
     from qvz_tpu_torch import _build
+    from qvz_tpu_torch.constants import DISTORTION_MSE, MODE_RATIO
+    from qvz_tpu_torch.native import runtime as rt
     from qvz_tpu_torch.ops import coder_device as cd
     from qvz_tpu_torch.ops import quantize as tq
     from qvz_tpu_torch.ops import stats as ts
+    from qvz_tpu_torch.ops.distortion import make_matrix
+    from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
+    from qvz_tpu_torch.pipeline import host
 
     dev = torch.device("cuda")
     card = smi()
+    rate = int32_ops_per_s(torch)
 
     # -- 0. the card ------------------------------------------------------
     print(f"[0] card: {card}")
@@ -490,6 +606,8 @@ def main() -> int:
     nv = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                         text=True, check=True).stdout.strip().splitlines()
     print(f"[0] nvcc: {nv[-1] if nv else '?'}", flush=True)
+    print(f"[0] bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s device memory, "
+          f"{rate / 1e12:.2f} T int32 operations/s", flush=True)
 
     # -- 1. build ---------------------------------------------------------
     t = time.perf_counter()
@@ -520,7 +638,7 @@ def main() -> int:
     counts, states, offs, prime_on = port.shard_plan(
         n, cols, shards, True, WellState.debug())
     require(prime_on, "the slice's plan primes")
-    draws = host_encode._shard_draws(states, counts, cols)
+    draws = host._shard_draws(states, counts, cols)
     print(f"[2] input {n} x {cols}, {len(counts) - 1} lanes of "
           f"{counts[1]} lines after a {counts[0]}-line warmup; statistics "
           f"equal the host's", flush=True)
@@ -545,9 +663,16 @@ def main() -> int:
             lambda: tq.quantize_reference(tabs, data_t, draws_t), torch))
     k1 = statistics.median(k1_ms)
     k1_plain = statistics.median(k1_plain_ms)
+    # data and draws in, mid, qs and qv (int32) out; about 12 operations
+    # a symbol (context, pair, dither choice, two lookups, stores)
+    k1_bound = bound(14 * n * cols + sum(int(v.numel() * v.element_size())
+                                         for v in tabs.values()
+                                         if torch.is_tensor(v)),
+                     12 * n * cols, rate)
     print(f"[3] K1 quantize {cols} x {n}: equal (max abs err {k1_err}); "
           f"kernel {k1:.3f} ms, plain {k1_plain:.3f} ms (median of 5, "
-          f"in turns); kernel {k1_ms}, plain {k1_plain_ms}", flush=True)
+          f"in turns); kernel {k1_ms}, plain {k1_plain_ms}; bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})", flush=True)
     mid, qs, _ = got
     del want
 
@@ -595,10 +720,14 @@ def main() -> int:
     pp, _ = cd.payloads_from_raw(wp, np_, cp)
     require(pk == pp, "K2 payload bytes equal the plain version's")
     steps = cols * max(lane_counts)
+    k2_bound = bound(8 * cols * sum(lane_counts)
+                     + sum(len(q) for q in pk if q is not None),
+                     STEP_OPS * cols * sum(lane_counts), rate)
     print(f"[4] K2 lane coder {len(lane_counts)} lanes x {steps} steps: "
           f"equal (max abs err {k2_err}), {int(fk.sum())} flagged lanes; "
           f"kernel {k2:.3f} ms ({k2_ms}), plain {k2_plain:.3f} ms "
-          f"(kernel, plain, kernel)", flush=True)
+          f"(kernel, plain, kernel); bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]})", flush=True)
     del raw, mid, qs, got, data_t, draws_t
 
     # -- 5. the end-to-end encode -----------------------------------------
@@ -616,15 +745,14 @@ def main() -> int:
                                device="cuda", **kw)
             runs.append(time.perf_counter() - t)
         secs = statistics.median(runs)
-        ref = host_encode.encode(
-            data, dist, well_state=WellState.debug(), use_jax=False,
-            shards=shards, prime=prime, want_recon=False)
+        ref = host.encode(data, dist, well_state=WellState.debug(),
+                          shards=shards, prime=prime, want_recon=False)
         require(out.compressed == ref.compressed,
-                f"prime={prime}: container byte-equal to qvz_tpu's host "
-                "encode")
+                f"prime={prime}: container byte-equal to the port's host "
+                "engine")
         require(fast.compressed == out.compressed,
                 f"prime={prime}: repeated encode byte-equal")
-        dec = host_decode.decode(out.compressed)
+        dec = host.decode(out.compressed)
         require(np.array_equal(dec[:, :cols], out.reconstructed + 33),
                 f"prime={prime}: host decode equals the -u reconstruction")
         for o in (out, fast):
@@ -650,13 +778,13 @@ def main() -> int:
         require(launches.get(name, 0) >= 1, f"the encode launched {name}")
 
     # -- 6.-10. the clustered path (-c 3 -T 4) -----------------------------
-    clus = clustered_phases(torch, np, data, dist, card)
+    clus = clustered_phases(torch, np, data, dist, card, rate)
     for name, k in clus["launches"].items():
         launches[name] = launches.get(name, 0) + k
     containers.update(clus.pop("containers"))
 
     # -- 11.-13. the device decode -------------------------------------------
-    dec = decode_phases(torch, np, containers, dist)
+    dec = decode_phases(torch, np, containers, dist, rate)
     launches["decoder"] = dec["launches"]["decoder"]
     require("jax" not in sys.modules, "no JAX imported")
 
@@ -666,29 +794,36 @@ def main() -> int:
          "replaces": "qvz_tpu/ops/quantize_pallas.py:292",
          "launches": launches["quantize"],
          "max_abs_err": max(k1_err, clus["k1_err"]),
-         "ms": k1, "plain_ms": k1_plain},
+         "ms": k1, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "coder", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/coder.cu",
          "replaces": "qvz_tpu/ops/coder_pallas.py:159",
          "launches": launches["coder"],
          "max_abs_err": max(k2_err, clus["k2_err"]),
-         "ms": k2, "plain_ms": k2_plain},
+         "ms": k2, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "hist", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/hist.cu",
          "replaces": "qvz_tpu/ops/pallas_kernels.py:168",
          "launches": launches["hist"], "max_abs_err": clus["k3_err"],
-         "ms": clus["k3_ms"], "plain_ms": clus["k3_plain_ms"]},
+         "ms": clus["k3_ms"], "plain_ms": clus["k3_plain_ms"],
+         "bound_ms": clus["k3_bound"][0], "bound_by": clus["k3_bound"][1],
+         "library_ms": clus["k3_lib_ms"]},
         {"name": "kmeans", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/kmeans.cu",
          "replaces": "qvz_tpu/ops/pallas_kernels.py:33",
          "launches": launches["kmeans"], "max_abs_err": clus["k4_err"],
-         "ms": clus["k4_ms"], "plain_ms": clus["k4_plain_ms"]},
+         "ms": clus["k4_ms"], "plain_ms": clus["k4_plain_ms"],
+         "bound_ms": clus["k4_bound"][0], "bound_by": clus["k4_bound"][1],
+         "library_ms": None},
         {"name": "decoder", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/decoder.cu",
          "replaces": "qvz_tpu/ops/decoder_pallas.py:149",
          "launches": launches["decoder"], "max_abs_err": dec["err"],
-         "ms": dec["ms"]["-c 1 prime=True"],
-         "plain_ms": dec["plain_ms"]["-c 1 prime=True"]},
+         "ms": dec["all_ms"]["-c 1 prime=True"],
+         "plain_ms": dec["plain_all_ms"], "bound_ms": dec["bound"][0],
+         "bound_by": dec["bound"][1], "library_ms": None},
     ]
     print(f"e2e encode MB/s: -c 1 prime on {mb / e2e[True]:.1f}, "
           f"prime off {mb / e2e[False]:.1f}; -c 3 prime on "
@@ -697,9 +832,9 @@ def main() -> int:
     print("e2e decode MB/s (host decoder): " + "; ".join(
         f"{name} {mb / s:.1f} ({mb / h:.1f})"
         for name, (s, h) in dec["e2e"].items()))
-    print("K5 over the 2-column prefix in the kernels line; over all "
-          "columns: " + ", ".join(f"{name} {ms:.3f} ms"
-                                  for name, ms in dec["all_ms"].items()))
+    print("K5 over all columns (the -c 1 primed one in the kernels line): "
+          + ", ".join(f"{name} {ms:.3f} ms"
+                      for name, ms in dec["all_ms"].items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

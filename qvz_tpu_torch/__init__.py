@@ -10,10 +10,14 @@ CUDA C++ under ``csrc/`` (built on first use, see ``_build``); every one
 has a plain PyTorch version beside it, which the wrappers use for tensors
 on the CPU.
 
-The parts of qvz_tpu that import no JAX are reused read-only: the C++
-runtime (``qvz_tpu.native``), the container formats, the WELL state, the
-distortion matrices and the host decoder. This package never imports
-JAX.
+The package stands alone: it imports neither JAX nor anything of
+qvz_tpu. It carries its own copies of what it needs from there, under
+the same module names: the host C++ runtime (``native/``, built with g++
+on first use), the container formats (``format/``), the WELL state and
+distortion matrices (``ops/well.py``, ``ops/distortion.py``), the
+k-means seeds and quality-file I/O (``spec/``) and the host engine
+(``pipeline/host.py``), which codes the v1 container, decodes the
+containers without lanes and is the reference of the device paths.
 """
 
 __version__ = "0.1.0"

@@ -121,9 +121,12 @@ def load() -> ctypes.CDLL:
     lib.qvz_kmeans_step.argtypes = [p, i64, i32, p, i32, i32, p, p, p, p]
     lib.qvz_kmeans_step.restype = ctypes.c_int
     lib.qvz_decode_lanes.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32,
-                                     p, i32, p, p, p, p, p, p, i32, p, p,
-                                     p, p, i64, i32, p, p]
+                                     p, i32, p, p, p, p, p, p, p, i32, p,
+                                     p, p, i64, i32, p, i32, i32, i32, i32,
+                                     i32, i64, i64, i64, p]
     lib.qvz_decode_lanes.restype = ctypes.c_int
+    lib.qvz_decoder_smem_limit.argtypes = []
+    lib.qvz_decoder_smem_limit.restype = ctypes.c_int
     _lib = lib
     return lib
 

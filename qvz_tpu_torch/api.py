@@ -7,14 +7,28 @@
 
 Compression runs the device QVZ2 encode (pipeline/encode.py);
 decompression the device QVZ2 decode (pipeline/decode.py), which sends
-containers without lanes (v1, single-shard) to qvz_tpu's host decoder.
+containers without lanes (v1, single-shard) to the port's host decoder.
 """
 
 from __future__ import annotations
 
-from qvz_tpu.api import _well
-from qvz_tpu.constants import DISTORTION_MSE, MODE_RATIO
-from qvz_tpu.ops.distortion import make_matrix
+import os
+
+import numpy as np
+
+from qvz_tpu_torch.constants import DISTORTION_MSE, MODE_RATIO
+from qvz_tpu_torch.ops.distortion import make_matrix
+from qvz_tpu_torch.ops.well import WellState
+
+
+def _well(seed: bytes | None, debug: bool) -> WellState:
+    """The WELL start state: 128 given bytes, the debug seed, or random
+    (the helper of ``qvz_tpu.api``)."""
+    if seed is not None:
+        return WellState.from_bytes(seed)
+    if debug:
+        return WellState.debug()
+    return WellState(np.frombuffer(os.urandom(128), dtype="<u4").tolist())
 
 
 def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
@@ -27,10 +41,11 @@ def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
                    debug_seed: bool = False,
                    prime: bool = True,
                    device: str = "cuda"):
-    """Compress raw quality-file bytes into a QVZ2 container. Returns
-    (container bytes, stats). shards=0 picks the device lane count."""
-    from qvz_tpu.spec.pipeline import load_quality_file
+    """Compress raw quality-file bytes into a container. Returns
+    (container bytes, stats). shards=0 picks the device lane count;
+    shards=1 gives the reference-compatible v1 container."""
     from qvz_tpu_torch.pipeline import encode as enc_mod
+    from qvz_tpu_torch.spec.pipeline import load_quality_file
 
     out = enc_mod.encode(
         load_quality_file(data),

@@ -8,29 +8,45 @@ Flags as ``python -m qvz_tpu`` (src/main.c:166-184): -q/-x/-f/-r/-d/-D/
 default, picks the device lane count; N >= 2 pins it), --no-prime, plus
 --device cuda|cpu (default cuda), which takes the place of --jax.
 -c K > 1 clusters the reads with k-means on the device first.
+--shards 1 codes the reference-compatible v1 container on the host engine
+after the device statistics.
 -x decodes a column-major QVZ2 container's lanes on --device (the lane
 decoder K5, as ``python -m qvz_tpu -x --jax`` decodes them on the TPU);
-v1 and other containers without lanes decode on qvz_tpu's host decoder.
---shards 1, --hosts, --streaming and --reuse-books are not ported yet
-and stop with an error that names the ROADMAP item.
+v1 and other containers without lanes decode on the port's host decoder.
+--hosts, --streaming and --reuse-books are not ported yet and stop with
+an error that names the ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
-from qvz_tpu.cli import _make_well
-from qvz_tpu.constants import (DISTORTION_CUSTOM, DISTORTION_LORENTZ,
-                               DISTORTION_MANHATTAN, DISTORTION_MSE,
-                               MODE_FIXED, MODE_RATIO)
-from qvz_tpu.ops.distortion import make_matrix
+import numpy as np
+
+from qvz_tpu_torch.constants import (DISTORTION_CUSTOM, DISTORTION_LORENTZ,
+                                     DISTORTION_MANHATTAN, DISTORTION_MSE,
+                                     MODE_FIXED, MODE_RATIO)
+from qvz_tpu_torch.ops.distortion import make_matrix
+from qvz_tpu_torch.ops.well import WellState
 
 _NOT_PORTED = {
     "--hosts": "item 9",
     "--streaming": "item 9",
     "--reuse-books": "item 10",
 }
+
+
+def _make_well(opts) -> WellState:
+    """The WELL start state of the CLI's options (the helper of
+    ``qvz_tpu.cli``): --well-state F, --debug-seed, or os.urandom."""
+    if opts.get("well_state_file"):
+        with open(opts["well_state_file"], "rb") as f:
+            return WellState.from_bytes(f.read(128))
+    if opts.get("debug_seed"):
+        return WellState.debug()
+    return WellState(np.frombuffer(os.urandom(128), dtype="<u4").tolist())
 
 
 def usage(name: str) -> None:
@@ -51,7 +67,8 @@ def usage(name: str) -> None:
     print("   --debug-seed : Use the fixed WELL seed (reproducible bitstreams)")
     print("   --well-state F : Load a raw 128-byte WELL state from F")
     print("   --shards N   : QVZ2 container with N parallel streams (0 = pick")
-    print("                  for the device, the default; N >= 2 pins it)")
+    print("                  for the device, the default; N >= 2 pins it;")
+    print("                  1 = the reference-compatible v1 container)")
     print("   --no-prime   : Disable QVZ2 shard priming")
     print("   --device D   : cuda (default) or cpu (the kernels' plain versions);")
     print("                  with -x, where QVZ2 shards decode as lanes")
@@ -192,8 +209,8 @@ def _run(opts, extract, input_name, output_name) -> int:
                   f"{time.perf_counter() - t0:f} seconds.")
         return 0
 
-    from qvz_tpu.spec.pipeline import lines_to_bytes, load_quality_file
     from qvz_tpu_torch.pipeline import encode as enc_mod
+    from qvz_tpu_torch.spec.pipeline import lines_to_bytes, load_quality_file
 
     out = enc_mod.encode(
         load_quality_file(input_name),

@@ -3,38 +3,62 @@
 // Replaces the TPU kernel qvz_tpu/ops/decoder_pallas.py::_dkernel (entry
 // decode_scan_tables, called from decoder_device.decode_lanes). Each lane is
 // one QVZ2 shard: an independent adaptive arithmetic stream over its lines
-// in column-major order. In that order the model of step (column c, line j)
-// depends only on the symbol decoded at (c - 1, j), the line's cluster id
-// and the dither draw, so a lane resolves each step's model from a row of
-// its own previous-column symbols and never waits on another lane. The
-// per-step maths is the host decoder's (qvz_rt.cpp Decoder::step,
-// BitReader and ModelBank::update; reference src/arith.c:118-205,
-// src/qv_stream.c:9-25): the tag check, the linear boundary search
-// cum*range < (t - l + 1)*n, the exact floor(range*cum/n) bounds and the
-// batched E1*/E3* renormalisation that takes stream bits MSB-first from
-// the payload, zero-filled past its end. So the symbols are the host
-// decoder's.
+// in column-major order. The per-step maths is the host decoder's
+// (qvz_rt.cpp Decoder::step, BitReader and ModelBank::update; reference
+// src/arith.c:118-205, src/qv_stream.c:9-25): the tag check, the linear
+// boundary search cum*range < (t - l + 1)*n, the exact floor(range*cum/n)
+// bounds and the batched E1*/E3* renormalisation that takes stream bits
+// MSB-first from the payload, zero-filled past its end. So the symbols are
+// the host decoder's.
 //
-// What bounds it on an H100: latency, as K2. A lane is a strict sequential
-// recurrence (interval, tag, bit position and counts), and only a few
-// thousand lanes exist, so at most a few warps run per SM. Each step's
-// chain is: load the previous symbol, cluster id and draw -> load the pair
-// and its dither threshold -> load the model's slot base and cardinality
-// -> sum the model's counts -> search them -> two 64-bit divides ->
-// renormalise, reading payload bytes.
+// Bound. At 1M x 100 (3,894 lanes x 24,000 steps, -c 1 primed) it reads
+// about 94 MB of draws and 30 MB of payload and writes 94 MB of text:
+// 0.07 ms at 3.35 TB/s. Each step is on the order of 100 integer
+// operations, about 9 G in all: 0.6 ms at 16.7 T int32 operations/s
+// (132 SMs x 64 int32 lanes x 1.98 GHz). So operations bound the work; but
+// a lane is a strict recurrence (interval, tag, bit position, counts) and
+// only a few thousand lanes exist, so what holds a step is the latency of
+// its dependent chain. The first version of this kernel spent about 2.6 us
+// (5,000 cycles) a step on a chain through device memory and L2: the
+// previous symbol, the pair, the dither threshold, the model's slot base and
+// cardinality, its counts read twice from a per-lane L2 scratch (summed,
+// then searched), two emulated 64-bit integer divides, and eight single-byte
+// payload loads a refill; each column start reset S count slots one by one.
 //
-// What the design does about it, where the TPU kernel worked around
-// Mosaic: the counts of a lane's current column live in a per-lane global
-// scratch of S int32, reset from the initial bank at each column start (all
-// lanes' scratch sits in the 50 MB L2); the search is the host's linear scan
-// over the model's counts, not a bisection over lane-replicated tables; the
-// products and divisions are exact 64-bit integer operations, not a split
-// 20x22-bit product and an f32 division with fix-ups; the bit feed is a
-// 64-bit reservoir over the lane's payload bytes that starts at any bit
-// position (a cluster-id prologue ends mid-byte); the previous-column row
-// is L bytes of device memory, with no cap on the lane length or the slot
-// count. Card-1 models move neither the interval nor a bit and skip the
-// search.
+// What this design does about each link:
+//   * Model resolution off the serial chain. The model of step (c, j)
+//     depends only on the symbol at (c - 1, j), the line's cluster id and
+//     the draw, so the whole block resolves a chunk of upcoming steps of
+//     all its lanes in parallel (coalesced loads of draws, cluster ids and
+//     the previous column's symbols) into a per-lane tile of column-local
+//     model indices in shared memory. The serial loop reads one entry, and
+//     prefetches the next step's entry and model record while it works.
+//   * The column's tables in shared memory. The lanes of a block walk the
+//     columns together; at each column start the block stages the
+//     column's ptab row, model records (slot base, cardinality, initial
+//     total), initial counts and symbol row with coalesced loads.
+//   * Counts and totals in shared memory. A lane's count of a slot is the
+//     staged initial count + 8 x its uses in this column, a u16 per slot;
+//     a model's total is its initial total + 8 x its uses, a u16 per
+//     model, so the summing pass goes. The whole block zeroes them at each
+//     column start with 16-byte stores. A u16 cannot wrap in a lane that
+//     is not flagged: 65,535 uses of a live model give a total of at least
+//     8 x 65,535 + 2 > 2^19 - 8, where the rescale flag is raised first.
+//   * Exact division by a reciprocal: floor(a / n) with a = range x cum <
+//     2^42 and n <= 2^19 is q = floor(a x rcp(n)) in f64, then one
+//     correction: rcp is correctly rounded and the product adds one more
+//     rounding, so |a x rcp(n) - a/n| <= 2^22 x 2^-51 = 2^-29. Where n does
+//     not divide a, a/n lies at least 1/n >= 2^-19 from every integer, so
+//     q is exact; where it does, q may be one short, and (q + 1) x n <= a
+//     finds it. One reciprocal serves both bounds of a step.
+//   * Wide payload reads: the reservoir refills with one aligned 8-byte
+//     load, two where unaligned (the packed buffer is padded).
+//   * Coalesced output: each chunk's symbols go to a shared tile, then to a
+//     (cols, lines) buffer with neighbouring threads on neighbouring bytes;
+//     a second kernel transposes that buffer into the text rows.
+//   * Lanes a warp is a launch parameter (32, 16 or 8 of a warp's threads
+//     decode; a block holds up to 32 lanes), so divergent steps of a warp
+//     serialise fewer lanes and an SM interleaves more warps.
 //
 // Flag contract (as the JAX kernel): bad (the tag left [l, u], an
 // unreachable context, or a search that ran past the model's last symbol,
@@ -58,25 +82,42 @@ constexpr uint32_t kMsbClear = kMsbBit - 1u;
 constexpr uint32_t kStep = 8;
 constexpr int kAlphabet = 72;
 constexpr int kOverrunBytes = 64;
-constexpr int kThreads = 32;
+constexpr int kMaxLanesPerBlock = 32;
+constexpr uint32_t kBadModel = 0x8000u;  // tile entry: unreachable context
 constexpr int64_t kFlagBad = 1, kFlagRescale = 2, kFlagOverrun = 4;
 
+__device__ __forceinline__ uint64_t bswap64(uint64_t v) {
+  const uint32_t lo = static_cast<uint32_t>(v);
+  const uint32_t hi = static_cast<uint32_t>(v >> 32);
+  return (static_cast<uint64_t>(__byte_perm(lo, 0, 0x0123)) << 32) |
+         __byte_perm(hi, 0, 0x0123);
+}
+
 // MSB-first bits of one lane's payload, zero past its end (the host
-// BitReader, started at any bit position).
+// BitReader, started at any bit position). words: the packed payloads,
+// 8-byte aligned, with at least 8 bytes after the last word that holds a
+// payload byte.
 struct BitReader {
-  const uint8_t* data;
+  const uint64_t* words;
+  int64_t base;      // the lane's first byte in the packed buffer
   int64_t len;
   int64_t next = 0;  // next byte to load
   uint64_t acc = 0;  // upcoming bits at the high end
   int navail = 0;
 
   __device__ void refill() {
-    uint64_t a = 0;
-    for (int i = 0; i < 8; ++i) {
-      const int64_t q = next + i;
-      a = (a << 8) | (q < len ? data[q] : 0u);
+    uint64_t v = 0;
+    const int64_t rem = len - next;
+    if (rem > 0) {
+      const int64_t q = base + next;
+      const int sh = static_cast<int>(q & 7) * 8;
+      const uint64_t* w = words + (q >> 3);
+      v = __ldg(w);
+      if (sh) v = (v >> sh) | (__ldg(w + 1) << (64 - sh));
+      v = bswap64(v);
+      if (rem < 8) v &= ~0ull << (8 * (8 - rem));
     }
-    acc = a;
+    acc = v;
     next += 8;
     navail = 64;
   }
@@ -111,143 +152,329 @@ struct BitReader {
   __device__ int64_t consumed() const { return next * 8 - navail; }
 };
 
+// floor(a / n) for a < 2^53 with a / n <= 2^22, from r = rcp(n) (see the
+// note at the top).
+__device__ __forceinline__ uint32_t exact_div(uint64_t a, uint32_t n,
+                                              double r) {
+  uint64_t q = static_cast<uint64_t>(static_cast<double>(a) * r);
+  if ((q + 1) * n <= a) ++q;
+  return static_cast<uint32_t>(q);
+}
+
+// Dynamic shared memory, in this order (every size a multiple of 8 bytes):
+//   mtab_s  int2[m_pad]           the column's model records
+//   init_s  int32[s_pad]          the column's initial counts
+//   ptab_s  int32[ptab_w]         the column's ptab row
+//   occ     u16[lpb][s_pad]       each lane's uses of each slot
+//   muse    u16[lpb][m_pad]       each lane's uses of each model
+//   tile    u16[lpb][lt]          the chunk's column-local model indices
+//   sym_s   u8[s_pad]             the column's symbol row
+//   symt    u8[lpb][lt]           the chunk's decoded symbols
 __global__ void decode_lanes_kernel(
-    const uint8_t* __restrict__ payload, const int64_t* __restrict__ pay_off,
+    const uint64_t* __restrict__ payload, const int64_t* __restrict__ pay_off,
     const int64_t* __restrict__ pay_len, const uint8_t* __restrict__ draws_t,
     int64_t n, const uint8_t* __restrict__ cl,
-    const int64_t* __restrict__ lane_off, int lanes, int cols, int cols_run,
+    const int64_t* __restrict__ lane_off, int lanes, int cols_run,
     const int32_t* __restrict__ ptab, int ptab_w,
-    const int32_t* __restrict__ qrtab, const int32_t* __restrict__ slot_base,
-    const int32_t* __restrict__ cards, const int32_t* __restrict__ init_counts,
+    const int32_t* __restrict__ qrtab, const int32_t* __restrict__ mloc,
+    const int2* __restrict__ mtab, const int32_t* __restrict__ col_model_off,
+    const int32_t* __restrict__ init_counts,
     const int32_t* __restrict__ col_slots, const int32_t* __restrict__ symtab,
-    int S, const int64_t* __restrict__ state_in, int32_t* __restrict__ counts,
-    uint8_t* __restrict__ prev, uint8_t* __restrict__ out, int64_t row_stride,
-    int sym_add, int64_t* __restrict__ state_out) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= lanes) return;
-  const int64_t lo = lane_off[w];
-  const int64_t len = lane_off[w + 1] - lo;
-  int32_t* cnt = counts + static_cast<int64_t>(w) * S;
-  uint8_t* prv = prev + lo;
-  BitReader br;
-  br.data = payload + pay_off[w];
-  br.len = pay_len[w];
-  br.start(state_in[w * 4 + 3]);
-  uint32_t l = static_cast<uint32_t>(state_in[w * 4 + 0]);
-  uint32_t u = static_cast<uint32_t>(state_in[w * 4 + 1]);
-  uint32_t t = static_cast<uint32_t>(state_in[w * 4 + 2]);
-  bool bad = false, rescale = false;
+    int S, const int64_t* __restrict__ state_in, uint8_t* __restrict__ out_t,
+    int64_t* __restrict__ state_out, int lpw, int lpb, int lt, int s_pad,
+    int m_pad) {
+  extern __shared__ uint4 smem_raw[];
+  char* sp = reinterpret_cast<char*>(smem_raw);
+  int2* mtab_s = reinterpret_cast<int2*>(sp);
+  sp += static_cast<size_t>(m_pad) * 8;
+  int32_t* init_s = reinterpret_cast<int32_t*>(sp);
+  sp += static_cast<size_t>(s_pad) * 4;
+  int32_t* ptab_s = reinterpret_cast<int32_t*>(sp);
+  sp += static_cast<size_t>(ptab_w) * 4;
+  uint16_t* occ = reinterpret_cast<uint16_t*>(sp);
+  sp += static_cast<size_t>(lpb) * s_pad * 2;
+  uint16_t* muse = reinterpret_cast<uint16_t*>(sp);
+  sp += static_cast<size_t>(lpb) * m_pad * 2;
+  uint16_t* tile = reinterpret_cast<uint16_t*>(sp);
+  sp += static_cast<size_t>(lpb) * lt * 2;
+  uint8_t* sym_s = reinterpret_cast<uint8_t*>(sp);
+  sp += s_pad;
+  uint8_t* symt = reinterpret_cast<uint8_t*>(sp);
 
-  for (int c = 0; c < cols_run; ++c) {
-    const int32_t* init = init_counts + static_cast<int64_t>(c) * S;
-    const int ns = col_slots[c];
-    for (int k = 0; k < ns; ++k) cnt[k] = init[k];
-    const int32_t* prow = ptab + static_cast<int64_t>(c) * ptab_w;
-    const uint8_t* drow = draws_t + static_cast<int64_t>(c) * n + lo;
-    const int32_t* srow = symtab + static_cast<int64_t>(c) * S;
-    uint8_t* orow = out + lo * row_stride;
-    for (int64_t j = 0; j < len; ++j) {
-      // model resolution: (cluster, previous symbol) -> pair -> dither
-      const int pv = c ? prv[j] : 0;
-      const int ci = cl ? cl[lo + j] : 0;
-      int p = prow[ci * kAlphabet + pv];
-      if (p < 0) {
-        bad = true;
-        p = 0;
-      }
-      const int m = 1 + 2 * p + (drow[j] >= qrtab[p] ? 1 : 0);
-      const int sb = slot_base[m];
-      const int card = cards[m];
-      if (t < l || t > u) bad = true;
-      int x = 0;
-      if (card > 1) {
-        int32_t* mc = cnt + sb;
-        uint32_t total = 0;
-        for (int k = 0; k < card; ++k) total += static_cast<uint32_t>(mc[k]);
-        const uint64_t range = static_cast<uint64_t>(u) - l + 1u;
-        const int64_t target =
-            (static_cast<int64_t>(t) - static_cast<int64_t>(l) + 1) *
-            static_cast<int64_t>(total);
-        uint32_t cum = static_cast<uint32_t>(mc[0]);
-        while (static_cast<int64_t>(cum * range) < target) {
-          if (++x == card) {  // cum is the total: the tag left [l, u]
-            x = card - 1;
-            bad = true;
-            break;
-          }
-          cum += static_cast<uint32_t>(mc[x]);
-        }
-        const uint32_t cum_lo = cum - static_cast<uint32_t>(mc[x]);
-        rescale |= total + kStep > kArithR;
-        mc[x] += static_cast<int32_t>(kStep);
-        u = l + static_cast<uint32_t>(range * cum / total) - 1u;
-        l = l + static_cast<uint32_t>(range * cum_lo / total);
+  __shared__ int64_t lane_lo_s[kMaxLanesPerBlock];
+  __shared__ int lane_len_s[kMaxLanesPerBlock];
+  __shared__ int block_len;
 
-        // E1* batch: the k1 shared leading bits shift out; the tag takes
-        // k1 stream bits. diff == 0 only in a lane already flagged; clamp
-        // so the shifts stay defined.
-        const uint32_t diff = l ^ u;
-        if ((diff >> kMsbShift) == 0) {
-          const int k1 = min(__clz(diff << (32 - kArithM)), kArithM);
-          l = (l << k1) & kFull;
-          u = ((u << k1) | ((1u << k1) - 1u)) & kFull;
-          t = ((t << k1) | br.getk(k1)) & kFull;
-        }
-        // E3* batch: k3 straddle steps, one final MSB flip of the tag.
-        if ((l >> kSmsbShift) == 1u && (u >> kSmsbShift) == 2u) {
-          const uint32_t lx = l << (32 - kSmsbShift);
-          const uint32_t ux = u << (32 - kSmsbShift);
-          const int lrun = __clz(~lx | 1u);
-          const int zrun = ux ? __clz(ux) : 32;
-          const int k3 = 1 + min(lrun, zrun);
-          l = (l << k3) & kMsbClear;
-          u = (((u << k3) & kMsbClear) | kMsbBit) | ((1u << k3) - 1u);
-          t = (((t << k3) | br.getk(k3)) & kFull) ^ kMsbBit;
-        }
-      }
-      const int qv = srow[sb + x];
-      prv[j] = static_cast<uint8_t>(qv);
-      orow[j * row_stride + c] = static_cast<uint8_t>(qv + sym_add);
-      if (c == 0 && row_stride > cols) orow[j * row_stride + cols] = '\n';
-    }
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int w0 = blockIdx.x * lpb;
+  const int nl = min(lpb, lanes - w0);  // lanes of this block
+  if (tid == 0) block_len = 0;
+  __syncthreads();
+  if (tid < nl) {
+    const int64_t lo = lane_off[w0 + tid];
+    const int len = static_cast<int>(lane_off[w0 + tid + 1] - lo);
+    lane_lo_s[tid] = lo;
+    lane_len_s[tid] = len;
+    atomicMax(&block_len, len);
   }
 
-  const int64_t bits = br.consumed();
-  const bool overrun = bits > 8 * (br.len + kOverrunBytes);
-  state_out[w * 5 + 0] = l;
-  state_out[w * 5 + 1] = u;
-  state_out[w * 5 + 2] = t;
-  state_out[w * 5 + 3] = bits;
-  state_out[w * 5 + 4] = (bad ? kFlagBad : 0) | (rescale ? kFlagRescale : 0) |
-                         (overrun ? kFlagOverrun : 0);
+  // this thread's lane, if it decodes one
+  const int ll = (tid >> 5) * lpw + (tid & 31);
+  const bool active = (tid & 31) < lpw && ll < nl;
+  const int w = w0 + ll;
+  BitReader br;
+  uint32_t l = 0, u = 0, t = 0;
+  bool bad = false, rescale = false;
+  if (active) {
+    br.words = payload;
+    br.base = pay_off[w];
+    br.len = pay_len[w];
+    br.start(state_in[w * 4 + 3]);
+    l = static_cast<uint32_t>(state_in[w * 4 + 0]);
+    u = static_cast<uint32_t>(state_in[w * 4 + 1]);
+    t = static_cast<uint32_t>(state_in[w * 4 + 2]);
+  }
+  __syncthreads();
+  const int len_max = block_len;
+  const int my_len = active ? lane_len_s[ll] : 0;
+  uint16_t* my_occ = occ + static_cast<size_t>(ll) * s_pad;
+  uint16_t* my_muse = muse + static_cast<size_t>(ll) * m_pad;
+  const uint16_t* my_tile = tile + static_cast<size_t>(ll) * lt;
+  uint8_t* my_symt = symt + static_cast<size_t>(ll) * lt;
+
+  for (int c = 0; c < cols_run; ++c) {
+    // -- stage the column and reset the lanes' uses ------------------------
+    const int ns = col_slots[c];
+    const int moff = col_model_off[c];
+    const int mc = col_model_off[c + 1] - moff;
+    const int nz = (ns + 7) >> 3, mz = (mc + 7) >> 3;
+    for (int i = tid; i < nl * nz; i += nthreads) {
+      reinterpret_cast<uint4*>(occ + static_cast<size_t>(i / nz) * s_pad)
+          [i % nz] = make_uint4(0, 0, 0, 0);
+    }
+    for (int i = tid; i < nl * mz; i += nthreads) {
+      reinterpret_cast<uint4*>(muse + static_cast<size_t>(i / mz) * m_pad)
+          [i % mz] = make_uint4(0, 0, 0, 0);
+    }
+    for (int i = tid; i < mc; i += nthreads) mtab_s[i] = mtab[moff + i];
+    const int32_t* irow = init_counts + static_cast<int64_t>(c) * S;
+    const int32_t* srow = symtab + static_cast<int64_t>(c) * S;
+    for (int i = tid; i < ns; i += nthreads) {
+      init_s[i] = irow[i];
+      sym_s[i] = static_cast<uint8_t>(srow[i]);
+    }
+    const int32_t* prow = ptab + static_cast<int64_t>(c) * ptab_w;
+    for (int i = tid; i < ptab_w; i += nthreads) ptab_s[i] = prow[i];
+    __syncthreads();
+
+    const uint8_t* drow = draws_t + static_cast<int64_t>(c) * n;
+    const uint8_t* prev_row =
+        c ? out_t + static_cast<int64_t>(c - 1) * n : out_t;
+    uint8_t* orow = out_t + static_cast<int64_t>(c) * n;
+    for (int j0 = 0; j0 < len_max; j0 += lt) {
+      // -- resolve the chunk's models, all lanes in parallel ---------------
+      for (int i = tid; i < nl * lt; i += nthreads) {
+        const int k = i / lt, jj = i - k * lt;
+        if (j0 + jj >= lane_len_s[k]) continue;
+        const int64_t line = lane_lo_s[k] + j0 + jj;
+        const int pv = c ? prev_row[line] : 0;
+        const int ci = cl ? cl[line] : 0;
+        int p = ptab_s[ci * kAlphabet + pv];
+        uint32_t flag = 0;
+        if (p < 0) {
+          flag = kBadModel;
+          p = 0;
+        }
+        const int m = 1 + 2 * p + (drow[line] >= __ldg(qrtab + p) ? 1 : 0);
+        tile[i] = static_cast<uint16_t>(__ldg(mloc + m) | flag);
+      }
+      __syncthreads();
+
+      // -- the serial steps, one thread a lane -----------------------------
+      const int steps = active ? min(lt, my_len - j0) : 0;
+      uint32_t ml_next = steps > 0 ? my_tile[0] : 0;
+      int2 mi_next = mtab_s[ml_next & (kBadModel - 1)];
+      for (int jj = 0; jj < steps; ++jj) {
+        const uint32_t mlf = ml_next;
+        const int2 mi = mi_next;
+        if (jj + 1 < steps) {
+          ml_next = my_tile[jj + 1];
+          mi_next = mtab_s[ml_next & (kBadModel - 1)];
+        }
+        if (mlf & kBadModel) bad = true;
+        const int sb = mi.x;
+        const uint32_t card = static_cast<uint32_t>(mi.y) >> 20;
+        if (t < l || t > u) bad = true;
+        int x = 0;
+        if (card > 1) {
+          uint16_t* oc = my_occ + sb;
+          const int32_t* ic = init_s + sb;
+          uint16_t& mu = my_muse[mlf & (kBadModel - 1)];
+          const uint32_t total =
+              (static_cast<uint32_t>(mi.y) & 0xFFFFFu) + kStep * mu;
+          const uint64_t range = static_cast<uint64_t>(u) - l + 1u;
+          const int64_t target =
+              (static_cast<int64_t>(t) - static_cast<int64_t>(l) + 1) *
+              static_cast<int64_t>(total);
+          uint32_t cx = static_cast<uint32_t>(ic[0]) + kStep * oc[0];
+          uint32_t cum = cx;
+          while (static_cast<int64_t>(cum * range) < target) {
+            if (++x == static_cast<int>(card)) {  // the tag left [l, u]
+              x = card - 1;
+              bad = true;
+              break;
+            }
+            cx = static_cast<uint32_t>(ic[x]) + kStep * oc[x];
+            cum += cx;
+          }
+          const uint32_t cum_lo = cum - cx;
+          rescale |= total + kStep > kArithR;
+          oc[x] += 1;
+          mu += 1;
+          const double r = __drcp_rn(static_cast<double>(total));
+          u = l + exact_div(range * cum, total, r) - 1u;
+          l = l + exact_div(range * cum_lo, total, r);
+
+          // E1* batch: the k1 shared leading bits shift out; the tag takes
+          // k1 stream bits. diff == 0 only in a lane already flagged; clamp
+          // so the shifts stay defined.
+          const uint32_t diff = l ^ u;
+          if ((diff >> kMsbShift) == 0) {
+            const int k1 = min(__clz(diff << (32 - kArithM)), kArithM);
+            l = (l << k1) & kFull;
+            u = ((u << k1) | ((1u << k1) - 1u)) & kFull;
+            t = ((t << k1) | br.getk(k1)) & kFull;
+          }
+          // E3* batch: k3 straddle steps, one final MSB flip of the tag.
+          if ((l >> kSmsbShift) == 1u && (u >> kSmsbShift) == 2u) {
+            const uint32_t lx = l << (32 - kSmsbShift);
+            const uint32_t ux = u << (32 - kSmsbShift);
+            const int lrun = __clz(~lx | 1u);
+            const int zrun = ux ? __clz(ux) : 32;
+            const int k3 = 1 + min(lrun, zrun);
+            l = (l << k3) & kMsbClear;
+            u = (((u << k3) & kMsbClear) | kMsbBit) | ((1u << k3) - 1u);
+            t = (((t << k3) | br.getk(k3)) & kFull) ^ kMsbBit;
+          }
+        }
+        my_symt[jj] = sym_s[sb + x];
+      }
+      __syncthreads();
+
+      // -- the chunk's symbols to the (cols, lines) buffer, coalesced ------
+      for (int i = tid; i < nl * lt; i += nthreads) {
+        const int k = i / lt, jj = i - k * lt;
+        if (j0 + jj < lane_len_s[k]) orow[lane_lo_s[k] + j0 + jj] = symt[i];
+      }
+      // the next chunk's resolution writes only the tile, which the serial
+      // steps no longer read; the next serial steps write symt only after
+      // the barrier that follows it
+    }
+    __syncthreads();  // the column's symbols are out before the next stage
+  }
+
+  if (active) {
+    const int64_t bits = br.consumed();
+    const bool overrun = bits > 8 * (br.len + kOverrunBytes);
+    state_out[w * 5 + 0] = l;
+    state_out[w * 5 + 1] = u;
+    state_out[w * 5 + 2] = t;
+    state_out[w * 5 + 3] = bits;
+    state_out[w * 5 + 4] = (bad ? kFlagBad : 0) |
+                           (rescale ? kFlagRescale : 0) |
+                           (overrun ? kFlagOverrun : 0);
+  }
+}
+
+// Text rows from the (cols, n) symbol buffer: out[line, c] = sym + sym_add
+// for c < cols_run and lines [lo, hi), and a newline at column `cols` where
+// the rows have one more column. A 32 x 32 tile a block: reads run along
+// lines, writes along a row's bytes.
+__global__ void text_rows_kernel(const uint8_t* __restrict__ out_t, int64_t n,
+                                 int64_t lo, int64_t hi, int cols_run,
+                                 int cols, uint8_t* __restrict__ out,
+                                 int64_t row_stride, int sym_add) {
+  __shared__ uint8_t tile[32][33];
+  const int c0 = blockIdx.y * 32;
+  const int64_t l0 = lo + static_cast<int64_t>(blockIdx.x) * 32;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int c = c0 + i;
+    const int64_t line = l0 + threadIdx.x;
+    if (c < cols_run && line < hi)
+      tile[i][threadIdx.x] = out_t[static_cast<int64_t>(c) * n + line];
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int64_t line = l0 + i;
+    const int c = c0 + threadIdx.x;
+    if (line >= hi) continue;
+    if (c < cols_run)
+      out[line * row_stride + c] =
+          static_cast<uint8_t>(tile[threadIdx.x][i] + sym_add);
+    if (row_stride > cols && blockIdx.y == 0 && threadIdx.x == 0)
+      out[line * row_stride + cols] = '\n';
+  }
 }
 
 }  // namespace
 
-// Launches K5 on `stream`; returns cudaGetLastError() of the launch.
-// payload: every lane's bytes, lane w's at pay_off[w] for pay_len[w];
-// draws_t: (cols, n) uint8; cl: (n,) uint8 cluster ids, or null with one
-// cluster; lane_off: (lanes + 1,) int64 line offsets; ptab: (cols, ptab_w)
-// int32; symtab, init_counts: (cols, S) int32; state_in: (lanes, 4) int64
-// (l, u, t, consumed bits); counts: (lanes, S) int32 scratch; prev: (n,)
-// uint8 scratch; out: (n, row_stride) uint8, row_stride >= cols;
-// state_out: (lanes, 5) int64 (l, u, t, consumed bits, flags).
+// The shared memory one block may ask for on the current device.
+extern "C" int qvz_decoder_smem_limit() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return v;
+}
+
+// Launches K5 and its text-row kernel on `stream`; returns
+// cudaGetLastError() after the launches. payload: the packed lane bytes
+// (8-byte aligned, padded), lane w's at pay_off[w] for pay_len[w]; draws_t:
+// (cols, n) uint8; cl: (n,) uint8 cluster ids, or null with one cluster;
+// lane_off: (lanes + 1,) int64 line offsets; ptab: (cols, ptab_w) int32;
+// mloc: (n_models,) int32 column-local model index; mtab: each column's
+// model records (slot base, cardinality << 20 | initial total) from
+// col_model_off[c]; init_counts, symtab: (cols, S) int32; state_in: (lanes,
+// 4) int64 (l, u, t, consumed bits); out_t: (cols, n) uint8 scratch; out:
+// (n, row_stride) uint8 text rows, row_stride >= cols; state_out: (lanes,
+// 5) int64 (l, u, t, consumed bits, flags). lpw lanes decode in each warp,
+// lpb lanes in each block (<= 32), lt steps a chunk; smem_bytes is the
+// dynamic shared memory of that shape.
 extern "C" int qvz_decode_lanes(
-    const uint8_t* payload, const int64_t* pay_off, const int64_t* pay_len,
+    const uint64_t* payload, const int64_t* pay_off, const int64_t* pay_len,
     const uint8_t* draws_t, int64_t n, const uint8_t* cl,
     const int64_t* lane_off, int lanes, int cols, int cols_run,
     const int32_t* ptab, int ptab_w, const int32_t* qrtab,
-    const int32_t* slot_base, const int32_t* cards,
+    const int32_t* mloc, const int2* mtab, const int32_t* col_model_off,
     const int32_t* init_counts, const int32_t* col_slots,
-    const int32_t* symtab, int S, const int64_t* state_in, int32_t* counts,
-    uint8_t* prev, uint8_t* out, int64_t row_stride, int sym_add,
-    int64_t* state_out, void* stream) {
+    const int32_t* symtab, int S, const int64_t* state_in, uint8_t* out_t,
+    uint8_t* out, int64_t row_stride, int sym_add, int64_t* state_out,
+    int lpw, int lpb, int lt, int s_pad, int m_pad, int64_t smem_bytes,
+    int64_t line_lo, int64_t line_hi, void* stream) {
   if (lanes <= 0) return 0;
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  decode_lanes_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      payload, pay_off, pay_len, draws_t, n, cl, lane_off, lanes, cols,
-      cols_run, ptab, ptab_w, qrtab, slot_base, cards, init_counts, col_slots,
-      symtab, S, state_in, counts, prev, out, row_stride, sym_add, state_out);
+  if (lpw < 1 || lpw > 32 || lpb < 1 || lpb > kMaxLanesPerBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int warps = (lpb + lpw - 1) / lpw;
+  const int blocks = (lanes + lpb - 1) / lpb;
+  decode_lanes_kernel<<<blocks, 32 * warps, smem_bytes, st>>>(
+      payload, pay_off, pay_len, draws_t, n, cl, lane_off, lanes, cols_run,
+      ptab, ptab_w, qrtab, mloc, mtab, col_model_off, init_counts, col_slots,
+      symtab, S, state_in, out_t, state_out, lpw, lpb, lt, s_pad, m_pad);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cols_run > 0 && line_hi > line_lo) {
+    const dim3 grid(static_cast<unsigned>((line_hi - line_lo + 31) / 32),
+                    static_cast<unsigned>((cols_run + 31) / 32));
+    text_rows_kernel<<<grid, dim3(32, 8), 0, st>>>(
+        out_t, n, line_lo, line_hi, cols_run, cols, out, row_stride,
+        sym_add);
+  }
   return static_cast<int>(cudaGetLastError());
 }

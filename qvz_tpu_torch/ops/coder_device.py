@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from qvz_tpu.constants import ADAPTIVE_STEP, ARITH_M, ARITH_R
+from qvz_tpu_torch.constants import ADAPTIVE_STEP, ARITH_M, ARITH_R
 from qvz_tpu_torch import _build
 
 FULL = (1 << ARITH_M) - 1

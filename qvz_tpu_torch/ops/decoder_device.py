@@ -30,7 +30,12 @@ rows go to ``out[line, :cols] = qv + sym_add``, and a newline to
 one row of (l, u, t, consumed bits, flags).
 
 ``DecodePlan`` is copied from ``qvz_tpu.ops.decoder_device`` (that module
-imports JAX when it loads), without its Mosaic-packed tables.
+imports JAX when it loads), without its Mosaic-packed tables, and adds the
+per-column model records that K5 stages in shared memory.
+
+K5 decodes LANES_PER_WARP lanes in each warp (``lanes_per_warp``; up to 32
+lanes a block): fewer lanes a warp serialise fewer divergent steps and let
+an SM interleave more warps.
 """
 
 from __future__ import annotations
@@ -50,6 +55,12 @@ from qvz_tpu_torch.ops.coder_device import (ARITH_M, ARITH_R, FULL,
 FLAG_BAD, FLAG_RESCALE, FLAG_OVERRUN = 1, 2, 4
 OVERRUN_BYTES = 64       # the host BitReader's margin past the payload
 A = 72                   # no model has more symbols than the alphabet
+# K5's launch shape: lanes decoded in each warp, and at most 32 lanes a
+# block (2 was the fastest of 32, 16, 8, 4, 2 and 1 on an H100, PERF.md)
+LANES_PER_WARP = 2
+_LANES_PER_BLOCK = 32
+_CHUNK_CAP = 2048        # K5's steps a chunk, at most
+_TOTAL_BITS = 20         # a model record packs card << 20 | initial total
 
 
 class DecodePlan:
@@ -58,7 +69,12 @@ class DecodePlan:
       ptab   (cols, n_cl*72) int32  pair index for (cluster, previous
              symbol), -1 where the context is unreachable;
       qrtab  (n_pairs,) int32       dither thresholds;
-      symtab (cols, S) int32        the symbol value of each slot."""
+      symtab (cols, S) int32        the symbol value of each slot;
+      mloc   (n_models,) int32      a model's index among its column's
+             models (col_models order);
+      mtab   (n_models - 1, 2) int32  each column's model records, from
+             col_model_off[c]: slot base, card << 20 | initial total;
+      col_model_off (cols + 1,) int32."""
 
     def __init__(self, plan, tables):
         cols, S = plan.columns, plan.S
@@ -82,6 +98,23 @@ class DecodePlan:
         ).astype(np.int32)
         self.qrtab = np.asarray(tables.qratio).astype(np.int32)
         self.symtab = symtab
+
+        mloc = np.zeros(len(plan.cards), dtype=np.int32)
+        recs = []
+        for ms in plan.col_models:
+            mloc[ms] = np.arange(len(ms))
+            recs.append(np.stack([plan.slot_base[ms].astype(np.int64),
+                                  (plan.cards[ms].astype(np.int64)
+                                   << _TOTAL_BITS)
+                                  | plan.totals[ms].astype(np.int64)], 1))
+        if int(plan.totals.max(initial=0)) >> _TOTAL_BITS:
+            raise ValueError("an initial model total passes 2^20")
+        self.mloc = mloc
+        self.mtab = (np.concatenate(recs) if recs
+                     else np.zeros((0, 2), np.int64)).astype(np.int32)
+        self.col_model_off = np.concatenate(
+            [[0], np.cumsum([len(ms) for ms in plan.col_models])]
+        ).astype(np.int32)
         self.plan = plan
         self.columns = cols
         self.S = S
@@ -92,15 +125,17 @@ def decode_plan_to_torch(dplan: DecodePlan, device) -> dict:
     """The plan's tables as int32 tensors on `device` (plan_to_torch's
     and ptab, qrtab, symtab)."""
     d = plan_to_torch(dplan.plan, device)
-    for k in ("ptab", "qrtab", "symtab"):
+    for k in ("ptab", "qrtab", "symtab", "mloc", "mtab", "col_model_off"):
         d[k] = torch.from_numpy(np.array(getattr(dplan, k), dtype=np.int32,
                                          copy=True)).to(device)
     d["n_clusters"] = int(dplan.n_clusters)
+    d["models_max"] = int(np.diff(dplan.col_model_off).max(initial=0))
     return d
 
 
 class LanePayloads(NamedTuple):
-    """The lanes' payload bytes, packed into one flat buffer."""
+    """The lanes' payload bytes, packed into one flat buffer, zero-padded
+    so that K5's aligned 8-byte loads stay inside it."""
     flat: torch.Tensor   # (P,) uint8
     off: torch.Tensor    # (W,) int64, where lane w's bytes start
     len: torch.Tensor    # (W,) int64
@@ -110,12 +145,17 @@ class LanePayloads(NamedTuple):
 def pack_payloads(payloads, device) -> LanePayloads:
     lens = np.fromiter((len(p) for p in payloads), dtype=np.int64,
                        count=len(payloads))
-    # a writable copy: torch refuses to share read-only buffers
-    flat = np.frombuffer(b"".join(bytes(p) for p in payloads),
-                         dtype=np.uint8).copy()
+    flat = np.zeros(_padded_len(int(lens.sum())), dtype=np.uint8)
+    flat[: int(lens.sum())] = np.frombuffer(
+        b"".join(bytes(p) for p in payloads), dtype=np.uint8)
     return LanePayloads(torch.from_numpy(flat).to(device),
                         torch.from_numpy(np.cumsum(lens) - lens).to(device),
                         torch.from_numpy(lens).to(device), lens)
+
+
+def _padded_len(nbytes: int) -> int:
+    """The packed buffer's length: whole 8-byte words and one more."""
+    return -(-nbytes // 8) * 8 + 8
 
 
 def start_state(payload) -> tuple:
@@ -275,18 +315,59 @@ def _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
         raise ValueError("inputs and plan must share one device")
 
 
+def _round8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def launch_shape(S: int, models_max: int, lmax: int, ptab_w: int,
+                 lanes_per_warp: int, smem_limit: int) -> dict:
+    """K5's block shape and dynamic shared memory for a plan of S slots
+    and at most models_max models a column, lanes of at most lmax lines:
+    lanes_per_warp lanes decode in each warp, a block holds 32 lanes in
+    32 / lanes_per_warp warps, and a chunk of up to 2048 steps; chunk,
+    then lanes, shrink until the layout of csrc/decoder.cu fits
+    smem_limit bytes. Raises if even one lane does not fit."""
+    if lanes_per_warp not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"lanes_per_warp {lanes_per_warp} is not a power "
+                         "of two up to 32")
+    if models_max >= 1 << 15:
+        raise ValueError(f"{models_max} models in a column; K5 takes fewer "
+                         "than 32768")
+    s_pad, m_pad = _round8(max(S, 1)), _round8(max(models_max, 1))
+
+    def size(lpb, lt):
+        return (m_pad * 8 + s_pad * 4 + ptab_w * 4 + lpb * s_pad * 2
+                + lpb * m_pad * 2 + lpb * lt * 2 + s_pad + lpb * lt)
+
+    lpb = _LANES_PER_BLOCK
+    lt = _round8(max(1, min(lmax, _CHUNK_CAP)))
+    while size(lpb, lt) > smem_limit:
+        if lt > 256:
+            lt = max(256, _round8(lt // 2))
+        elif lpb > 1:
+            lpb //= 2
+        elif lt > 8:
+            lt = _round8(lt // 2)
+        else:
+            raise ValueError(f"K5 needs {size(1, 8)} B of shared memory "
+                             f"for S = {S}, more than the card's "
+                             f"{smem_limit} B")
+    return {"lpw": min(lanes_per_warp, lpb), "lpb": lpb, "lt": lt,
+            "s_pad": s_pad, "m_pad": m_pad, "smem": size(lpb, lt)}
+
+
 def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
                    cl: torch.Tensor | None, lane_counts, base: int,
                    states: torch.Tensor, out: torch.Tensor,
-                   sym_add: int = 0, cols_run: int | None = None
-                   ) -> torch.Tensor:
+                   sym_add: int = 0, cols_run: int | None = None,
+                   lanes_per_warp: int = LANES_PER_WARP) -> torch.Tensor:
     """Decode the lanes into the rows of `out` (see the module docstring)
     and return their final states, (W, 5) int64 rows of (l, u, t,
     consumed bits, flags). draws_t: (cols, N) uint8; cl: (N,) uint8 or
     None with one cluster; states: (W, 4) int64 start (l, u, t, consumed
     bits); out: (N, cols or cols + 1) uint8. cols_run stops after that
     many columns. CPU tensors take the plain version; CUDA tensors launch
-    K5 (csrc/decoder.cu) or raise."""
+    K5 (csrc/decoder.cu), lanes_per_warp lanes in each warp, or raise."""
     _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
            cols_run)
     dev = draws_t.device
@@ -296,29 +377,43 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
                                       sym_add, cols_run)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = _build.load()
-    cols = dplan_t["columns"]
-    W = len(lane_counts)
-    S = dplan_t["S"]
-    draws_t = draws_t.contiguous()
-    states = states.contiguous()
     if not out.is_contiguous():
         raise ValueError("out must be contiguous")
+    lib = _build.load()
+    cols = dplan_t["columns"]
+    cols_run = cols if cols_run is None else cols_run
+    W = len(lane_counts)
+    S = dplan_t["S"]
+    n = draws_t.shape[1]
+    draws_t = draws_t.contiguous()
+    states = states.contiguous()
+    flat = pays.flat
+    padded = _padded_len(int(pays.lens.sum()))
+    if flat.data_ptr() % 8 or flat.numel() < padded:
+        flat = torch.zeros(padded, dtype=torch.uint8, device=dev)
+        flat[: pays.flat.numel()] = pays.flat
+    shape = launch_shape(S, dplan_t["models_max"],
+                         int(max(lane_counts, default=0)),
+                         dplan_t["ptab"].shape[1], lanes_per_warp,
+                         lib.qvz_decoder_smem_limit() - 1024)
     offs = _lane_offsets(lane_counts, base, dev)
-    counts = torch.empty((W, S), dtype=torch.int32, device=dev)
-    prev = torch.empty(draws_t.shape[1], dtype=torch.uint8, device=dev)
+    out_t = torch.empty((max(cols_run, 1), n), dtype=torch.uint8,
+                        device=dev)
     state_out = torch.empty((W, 5), dtype=torch.int64, device=dev)
+    hi = base + int(np.sum(lane_counts))
     rc = lib.qvz_decode_lanes(
-        pays.flat.data_ptr(), pays.off.data_ptr(), pays.len.data_ptr(),
-        draws_t.data_ptr(), draws_t.shape[1],
+        flat.data_ptr(), pays.off.data_ptr(), pays.len.data_ptr(),
+        draws_t.data_ptr(), n,
         cl.contiguous().data_ptr() if cl is not None else None,
-        offs.data_ptr(), W, cols, cols if cols_run is None else cols_run,
+        offs.data_ptr(), W, cols, cols_run,
         dplan_t["ptab"].data_ptr(), dplan_t["ptab"].shape[1],
-        dplan_t["qrtab"].data_ptr(), dplan_t["slot_base"].data_ptr(),
-        dplan_t["cards"].data_ptr(), dplan_t["init_counts"].data_ptr(),
-        dplan_t["col_slots"].data_ptr(), dplan_t["symtab"].data_ptr(), S,
-        states.data_ptr(), counts.data_ptr(), prev.data_ptr(),
+        dplan_t["qrtab"].data_ptr(), dplan_t["mloc"].data_ptr(),
+        dplan_t["mtab"].data_ptr(), dplan_t["col_model_off"].data_ptr(),
+        dplan_t["init_counts"].data_ptr(), dplan_t["col_slots"].data_ptr(),
+        dplan_t["symtab"].data_ptr(), S, states.data_ptr(), out_t.data_ptr(),
         out.data_ptr(), out.shape[1], sym_add, state_out.data_ptr(),
+        shape["lpw"], shape["lpb"], shape["lt"], shape["s_pad"],
+        shape["m_pad"], shape["smem"], base, hi,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lane decoder kernel")
     _build.LAUNCHES["decoder"] += 1

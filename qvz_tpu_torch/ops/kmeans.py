@@ -14,10 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qvz_tpu.constants import MAX_KMEANS_ITERATIONS
-from qvz_tpu.spec import kmeans as spec_kmeans
 from qvz_tpu_torch import _build
+from qvz_tpu_torch.constants import MAX_KMEANS_ITERATIONS
 from qvz_tpu_torch.device import resolve
+from qvz_tpu_torch.spec import kmeans as spec_kmeans
 
 _TILE = 8            # K4 pads the means to a multiple of 8 clusters
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from qvz_tpu.constants import ALPHABET_SIZE
+from qvz_tpu_torch.constants import ALPHABET_SIZE
 from qvz_tpu_torch import _build
 
 

@@ -20,8 +20,8 @@ into a device buffer, so the rows need no assembly on the host.
 ``stats`` also gets ``lanes`` and ``fallback_lanes`` (flagged lanes).
 
 v1 containers, row-major QVZ2 and single-shard QVZ2 have no lanes: they
-go to the host decoder, as ``qvz_tpu`` routes them. The output is the host
-decoder's bytes in every case.
+go to the port's host decoder (``pipeline/host.py``), as ``qvz_tpu``
+routes them. The output is the host decoder's bytes in every case.
 """
 
 from __future__ import annotations
@@ -35,14 +35,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qvz_tpu.format import container, container_v2
-from qvz_tpu.native import runtime as rt
-from qvz_tpu.pipeline import decode as host_decode
-from qvz_tpu.pipeline.decode import (_malformed_raises_valueerror, _parsing,
-                                     _sane_output_size)
-from qvz_tpu.pipeline.encode import _shard_draws
 from qvz_tpu_torch.device import resolve, synchronize
+from qvz_tpu_torch.format import container, container_v2
+from qvz_tpu_torch.native import runtime as rt
 from qvz_tpu_torch.ops import coder_device, decoder_device
+from qvz_tpu_torch.pipeline import host
+from qvz_tpu_torch.pipeline.host import (_malformed_raises_valueerror,
+                                         _parsing, _sane_output_size,
+                                         _shard_draws)
 
 
 class Lanes(NamedTuple):
@@ -92,8 +92,7 @@ def decode(compressed, out: np.ndarray | None = None, verbose: bool = False,
             _decode_lanes(compressed, head, tables, out, dev,
                           stats if stats is not None else {})
             return out
-    return host_decode.decode(compressed, out=out, verbose=verbose,
-                              device=False)
+    return host.decode(compressed, out=out, verbose=verbose)
 
 
 @_malformed_raises_valueerror

@@ -18,9 +18,11 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
                flagged lanes, distortion and container assembly
 
 Device phases end in a synchronise, so each time covers its device work.
-The container is byte-identical to ``qvz_tpu``'s for the same shard
-count, priming and WELL seed; decode stays on the shared host decoder
-(``qvz_tpu.pipeline.decode``).
+The container is byte-identical to ``qvz_tpu``'s, and to the port's host
+engine (``pipeline/host.py``), for the same shard count, priming and WELL
+seed. With shards == 1 the statistics and k-means still run on the
+device and the host engine codes the single-stream v1 container after
+the design, as ``qvz_tpu``'s device path does.
 """
 
 from __future__ import annotations
@@ -31,16 +33,16 @@ import time
 import numpy as np
 import torch
 
-from qvz_tpu.constants import MODE_RATIO
-from qvz_tpu.format import container_v2
-from qvz_tpu.native import runtime as rt
-from qvz_tpu.ops.well import WellState
-from qvz_tpu.pipeline import encode as host_encode
-from qvz_tpu.pipeline.encode import (EncodeOutput, EncodeStats, _shard_draws,
-                                     _shard_plan)
+from qvz_tpu_torch.constants import MODE_RATIO
 from qvz_tpu_torch.device import resolve, synchronize
+from qvz_tpu_torch.format import container_v2
+from qvz_tpu_torch.native import runtime as rt
 from qvz_tpu_torch.ops import coder_device, kmeans, quantize
 from qvz_tpu_torch.ops import stats as dev_stats
+from qvz_tpu_torch.ops.well import WellState
+from qvz_tpu_torch.pipeline import host
+from qvz_tpu_torch.pipeline.host import (EncodeOutput, EncodeStats,
+                                         _shard_draws, shard_plan)
 
 
 def device_lane_count(n: int) -> int:
@@ -48,31 +50,6 @@ def device_lane_count(n: int) -> int:
     (the formula of ``qvz_tpu.pipeline.encode.encode``), so containers of
     the two packages compare."""
     return max(16, min(8192, max(n // 256, -(-n // 1536))))
-
-
-def shard_plan(n: int, columns: int, shards: int, prime: bool,
-               well_state: WellState):
-    """Lines per shard, per-shard WELL start states (S, 32), line
-    offsets (S+1,) and whether shard 0 is a priming warmup shard: the
-    plan of qvz_tpu's _finish_encode for shards >= 2."""
-    order = [(well_state.n + i) & 31 for i in range(32)]
-    state_words = np.asarray(well_state.state, dtype=np.uint32)[order]
-    warmup = (min(host_encode.PRIME_WARMUP_LINES, max(8192, n // 12))
-              if prime else 0)
-    prime_on = warmup > 0 and n > 2 * warmup
-    counts = _shard_plan(n, columns, shards,
-                         warmup=warmup if prime_on else 0)
-    prime_on = prime_on and len(counts) > 1
-    if prime_on:
-        base2 = rt.well_jump(state_words, 2, counts[0] * columns // 4)
-        rest = rt.well_jump(base2[1], len(counts) - 1,
-                            counts[1] * columns // 4)
-        states = np.vstack([state_words[None, :], rest])
-    else:
-        states = rt.well_jump(state_words, len(counts),
-                              counts[0] * columns // 4)
-    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    return counts, states, offs, prime_on
 
 
 def _not_ported(what: str, item: str):
@@ -95,9 +72,10 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
 
     n_clusters > 1 clusters the reads with k-means first (threshold
     cluster_threshold, -T). shards=0 picks the device lane count;
-    shards >= 2 pins it. prime: shards after the warmup shard start from
-    its model bank. Outside this slice (raise NotImplementedError):
-    reuse_blocks, and the single-stream v1 container (shards == 1)."""
+    shards >= 2 pins it; shards == 1 codes the single-stream v1
+    container on the host engine after the device statistics. prime:
+    shards after the warmup shard start from its model bank. Outside
+    this slice (raises NotImplementedError): reuse_blocks."""
     if reuse_blocks is not None:
         raise _not_ported("--reuse-books", "item 10")
     dev = resolve(device)
@@ -105,9 +83,6 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     if shards == 0:
         shards = device_lane_count(n)
     shards = max(1, min(shards, n))
-    if shards == 1:
-        raise _not_ported("the single-stream v1 container (--shards 1)",
-                          "item 10")
     if well_state is None:
         well_state = WellState.debug()
     st = EncodeStats(lines=n, columns=columns)
@@ -147,6 +122,14 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     if verbose:
         print(f"Stats and codebook generation took {t4 - t2:.4f} seconds")
 
+    if shards == 1:
+        compressed, payload_bytes, recon, dist_sum = host.encode_v1(
+            tables, blocks, data, clusters, n_clusters, well_state,
+            dist_matrix, want_recon, verbose)
+        ph["code"] = time.perf_counter() - t4
+        return _output(compressed, payload_bytes, recon, dist_sum,
+                       clusters, st)
+
     counts, states, offs, prime_on = shard_plan(n, columns, shards, prime,
                                                 well_state)
     draws = _shard_draws(states, counts, columns)
@@ -176,9 +159,15 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
         blocks, n_clusters, columns, n, counts, shard_states, payloads,
         priming=1 if prime_on else 0)
     ph["code"] = time.perf_counter() - t7
+    return _output(compressed, sum(len(p) for p in payloads), recon,
+                   dist_sum, clusters, st)
 
-    st.payload_bytes = sum(len(p) for p in payloads)
-    st.rate = (st.payload_bytes * 8.0) / (float(n) * columns)
+
+def _output(compressed, payload_bytes, recon, dist_sum, clusters,
+            st) -> EncodeOutput:
+    n, columns = st.lines, st.columns
+    st.payload_bytes = payload_bytes
+    st.rate = (payload_bytes * 8.0) / (float(n) * columns)
     st.distortion = dist_sum / n
     return EncodeOutput(compressed, recon,
                         np.zeros(n, dtype=np.uint8) if clusters is None

@@ -42,9 +42,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import make_input, smi
-    from qvz_tpu.constants import DISTORTION_MSE
-    from qvz_tpu.ops.distortion import make_matrix
-    from qvz_tpu.ops.well import WellState
+    from qvz_tpu_torch.constants import DISTORTION_MSE
+    from qvz_tpu_torch.ops.distortion import make_matrix
+    from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline.decode import decode
     from qvz_tpu_torch.pipeline.encode import encode
 

@@ -22,6 +22,7 @@ from qvz_tpu_torch.ops import coder_device as cd
 from qvz_tpu_torch.ops import decoder_device as dd
 from qvz_tpu_torch.pipeline import decode as port
 from qvz_tpu_torch.pipeline import encode as port_encode
+from qvz_tpu_torch.pipeline import host as port_host
 
 DIST = make_matrix(DISTORTION_MSE)
 
@@ -41,8 +42,10 @@ def _encode(data, **kw):
 
 @pytest.fixture
 def small_warmup(monkeypatch):
-    """Prime with a 512-line warmup shard, so a small input primes."""
+    """Prime with a 512-line warmup shard in both packages, so a small
+    input primes."""
     monkeypatch.setattr(host_encode, "PRIME_WARMUP_LINES", 512)
+    monkeypatch.setattr(port_host, "PRIME_WARMUP_LINES", 512)
 
 
 def _tables(comp):
@@ -446,3 +449,74 @@ def test_decode_files(tmp_path):
     with pytest.raises(ValueError, match="empty"):
         port.decode_file_to_file(str(tmp_path / "e.q"), str(dst),
                                  device="cpu")
+
+
+def test_decode_plan_model_records():
+    """K5's per-column model records: each model's column-local index
+    points at its slot base, cardinality and initial total."""
+    comp = _encode(_data(600, 5, seed=43), shards=3, n_clusters=3,
+                   prime=False)
+    _, tables = _tables(comp)
+    plan = cd.LanePlan(tables, None)
+    dplan = dd.DecodePlan(plan, tables)
+    for c, ms in enumerate(plan.col_models):
+        rec = dplan.mtab[dplan.col_model_off[c] + dplan.mloc[ms]]
+        assert np.array_equal(rec[:, 0], plan.slot_base[ms])
+        assert np.array_equal(rec[:, 1] >> 20, plan.cards[ms])
+        assert np.array_equal(rec[:, 1] & 0xFFFFF, plan.totals[ms])
+    assert dplan.col_model_off[-1] == len(dplan.mtab) == len(plan.cards) - 1
+
+
+@pytest.mark.parametrize("S,models,lmax,lpw,want", [
+    (1004, 140, 240, 8, (8, 32, 240)),       # -c 1 at 1M x 100
+    (2361, 432, 260, 32, (32, 32, 264)),     # -c 3, every model of a column
+    (2361, 432, 150_000, 8, (8, 32, 256)),   # lanes of 150,000 lines
+    (20_000, 400, 260, 8, (2, 2, 256)),      # two lanes a block
+])
+def test_launch_shape_fits(S, models, lmax, lpw, want):
+    limit = 232_448 - 1024
+    shape = dd.launch_shape(S, models, lmax, 216, lpw, limit)
+    assert (shape["lpw"], shape["lpb"], shape["lt"]) == want
+    assert shape["smem"] <= limit
+    assert shape["s_pad"] % 8 == 0 and shape["m_pad"] % 8 == 0
+
+
+def test_launch_shape_refuses():
+    with pytest.raises(ValueError, match="shared memory"):
+        dd.launch_shape(200_000, 400, 260, 216, 8, 231_424)
+    with pytest.raises(ValueError, match="power of two"):
+        dd.launch_shape(1004, 140, 240, 216, 12, 231_424)
+    with pytest.raises(ValueError, match="models in a column"):
+        dd.launch_shape(1004, 1 << 15, 240, 216, 8, 231_424)
+
+
+def test_payloads_are_padded_for_wide_loads():
+    pays = [b"\x01\x02\x03", b"", b"\xff" * 9]
+    packed = dd.pack_payloads(pays, "cpu")
+    assert packed.flat.numel() == 24 and packed.flat.numel() % 8 == 0
+    assert packed.flat[:12].tolist() == [1, 2, 3] + [255] * 9
+    assert not packed.flat[12:].any()
+    assert packed.off.tolist() == [0, 3, 3]
+    assert packed.lens.tolist() == [3, 0, 9]
+
+
+@pytest.mark.cuda
+def test_cuda_lanes_per_warp_agree():
+    """K5 on the card gives the plain version's rows and states at every
+    lanes-a-warp setting (chip_smoke.py runs this at full size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device is visible")
+    comp = _encode(_data(2000, 6, seed=44), shards=8, n_clusters=3,
+                   prime=False)
+    lanes = port.prepare_lanes(comp, "cuda")
+    n = lanes.draws_t.shape[1]
+    want = torch.zeros((n, 7), dtype=torch.uint8, device="cuda")
+    fin = dd.decode_lanes_reference(lanes.dplan_t, lanes.pays, lanes.draws_t,
+                                    lanes.cl, lanes.lane_counts, 0,
+                                    lanes.starts, want, 33)
+    for lpw in (32, 16, 8, 4, 2, 1):
+        got = torch.zeros_like(want)
+        f = dd.decode_lanes_t(lanes.dplan_t, lanes.pays, lanes.draws_t,
+                              lanes.cl, lanes.lane_counts, 0, lanes.starts,
+                              got, 33, lanes_per_warp=lpw)
+        assert torch.equal(f, fin) and torch.equal(got, want), lpw

@@ -24,6 +24,7 @@ from qvz_tpu.spec.pipeline import load_quality_file
 from qvz_tpu_torch import cli
 from qvz_tpu_torch.ops import stats as tstats
 from qvz_tpu_torch.pipeline import encode as port
+from qvz_tpu_torch.pipeline import host as port_host
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIST = make_matrix(DISTORTION_MSE)
@@ -39,8 +40,10 @@ def _data(n, cols, seed):
 
 @pytest.fixture
 def small_warmup(monkeypatch):
-    """Prime with a 512-line warmup shard, so a small input primes."""
+    """Prime with a 512-line warmup shard in both packages, so a small
+    input primes."""
     monkeypatch.setattr(host_encode, "PRIME_WARMUP_LINES", 512)
+    monkeypatch.setattr(port_host, "PRIME_WARMUP_LINES", 512)
     monkeypatch.setenv("QVZ_TPU_DEVICE_MIN_BYTES", "0")
 
 
@@ -208,12 +211,30 @@ def test_conditional_counts_match_jax_and_host():
                           np.bincount(data[:, 0], minlength=72))
 
 
-@pytest.mark.parametrize("kw", [dict(shards=1), dict(reuse_blocks=b"")],
-                         ids=["v1", "reuse"])
+@pytest.mark.parametrize("kw", [dict(reuse_blocks=b"")], ids=["reuse"])
 def test_outside_the_slice_raises(kw):
     data = _data(100, 4, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.encode(data, DIST, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("n_clusters", [1, 3])
+def test_v1_encode_matches_qvz_tpu(n_clusters):
+    """shards=1: the device statistics (and k-means), then the host
+    engine codes the single-stream v1 container, as qvz_tpu's device
+    path does."""
+    data = _data(1300, 8, seed=12 + n_clusters)
+    kw = dict(n_clusters=n_clusters, shards=1)
+    got = port.encode(data, DIST, well_state=WellState.debug(),
+                      device="cpu", **kw)
+    assert got.compressed == _jax_encode(data, True, **kw).compressed
+    host = _jax_encode(data, False, **kw)
+    assert got.compressed == host.compressed
+    assert np.array_equal(got.reconstructed, host.reconstructed)
+    assert got.stats.rate == host.stats.rate
+    assert f"{got.stats.distortion:.4f}" == f"{host.stats.distortion:.4f}"
+    assert np.array_equal(host_decode.decode(got.compressed)[:, :8],
+                          got.reconstructed + 33)
 
 
 def test_cli_decode_matches_qvz_tpu(small_warmup, tmp_path):
@@ -268,12 +289,26 @@ def test_cli_round_trip(golden_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--hosts", "2"], ["--streaming"],
-                                   ["--reuse-books", "x.q"],
-                                   ["--shards", "1"]],
-                         ids=["hosts", "streaming", "reuse", "v1"])
+                                   ["--reuse-books", "x.q"]],
+                         ids=["hosts", "streaming", "reuse"])
 def test_cli_flags_outside_the_slice(golden_dir, tmp_path, capsys, flags):
     rc = cli.main(["qvz_tpu_torch", *flags, "--device", "cpu",
                    str(golden_dir / "tiny.in"), str(tmp_path / "o")])
     out = capsys.readouterr().out
     assert rc == 1
     assert "not ported" in out and "ROADMAP" in out
+
+
+def test_cli_v1_round_trip(golden_dir, tmp_path):
+    """--shards 1 writes the C reference's v1 container (tiny_f05), and -x
+    decodes it to the golden reconstruction."""
+    src = golden_dir / "tiny.in"
+    q, u, x = tmp_path / "out.q", tmp_path / "recon.u", tmp_path / "dec"
+    assert cli.main(["qvz_tpu_torch", "-f", "0.5", "--shards", "1",
+                     "--debug-seed", "--device", "cpu", "-u", str(u),
+                     str(src), str(q)]) == 0
+    assert q.read_bytes() == (golden_dir / "tiny_f05.q").read_bytes()
+    assert u.read_bytes() == (golden_dir / "tiny_f05.u").read_bytes()
+    assert cli.main(["qvz_tpu_torch", "-x", "--device", "cpu", str(q),
+                     str(x)]) == 0
+    assert x.read_bytes() == u.read_bytes()
