@@ -11,10 +11,11 @@ Illumina-like quality scores made from seed 42, -f 0.5, MSE, --shards 0
 Phases:
 
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc
-  1. build the five kernels (csrc/quantize.cu K1, csrc/coder.cu K2,
-     csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5) from the
-     sources for sm_90a, one nvcc per source in parallel, with the ptxas
-     report
+  1. build the eight kernels (csrc/quantize.cu K1, csrc/coder.cu K2,
+     csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5, and the
+     microbenchmark's issue, mix and selmix in csrc/microbench.cu) from
+     the sources for sm_90a, one nvcc per source in parallel, with the
+     ptxas report
   2. the input; device statistics (K3, one cluster) checked equal to the
      host C++ counts; codebook design
   3. K1 against its plain PyTorch version at the full shape: element-equal
@@ -60,6 +61,16 @@ Phases:
      rescale: flagged, decoded again on the host, byte-equal
  14. K5 over all columns of the four containers at 32, 16, 8, 4, 2 and 1
      lanes a warp: equal output, median of 3 each
+ 15. the integer-issue microbenchmark (qvz_tpu_torch.microbench, the port
+     of scripts/vpu_microbench.py, on no path of the system): every leg
+     of the TPU script at reps 6 at its shape, each kernel equal to its
+     plain version and the checksum to the script's replay; the mix legs
+     at their timed reps equal to the plain version at the TPU's shape,
+     the issue legs at reps 4096; each leg timed (median of 5) at the
+     TPU's shape and, for the mix legs, with the leading axis scaled to
+     fill the shared memory of every SM; per leg the rate by source ops
+     and by the SASS instructions of its kernel's inner loop (cuobjdump),
+     with the loop's opcode counts
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns. Each kernel's bound is the larger of its bytes (each
@@ -571,6 +582,29 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
     return res
 
 
+def microbench_phase(rate) -> list:
+    """Phase 15: the microbenchmark's legs (qvz_tpu_torch.microbench);
+    returns its three kernels' entries of the kernels line."""
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch import microbench as mb
+
+    _build.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = mb.run_legs("cuda", rate=rate, prefix="[15] ")
+    launches = dict(_build.LAUNCHES)
+    entries = []
+    for name in ("issue", "mix", "selmix"):
+        e = dict(res["kernels"][name], launches=launches.get(name, 0))
+        require(e["launches"] >= 1, f"phase 15 launched {name}")
+        require(e["max_abs_err"] == 0, f"{name} equals its plain version")
+        entries.append(e)
+    print(f"[15] microbenchmark: {len(res['legs'])} legs in "
+          f"{time.perf_counter() - t:.1f} s, every kernel equal to its plain "
+          f"version and every checksum to the replay; launches {launches}",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -786,6 +820,9 @@ def main() -> int:
     # -- 11.-13. the device decode -------------------------------------------
     dec = decode_phases(torch, np, containers, dist, rate)
     launches["decoder"] = dec["launches"]["decoder"]
+
+    # -- 15. the integer-issue microbenchmark --------------------------------
+    mb_kernels = microbench_phase(rate)
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -824,6 +861,7 @@ def main() -> int:
          "ms": dec["all_ms"]["-c 1 prime=True"],
          "plain_ms": dec["plain_all_ms"], "bound_ms": dec["bound"][0],
          "bound_by": dec["bound"][1], "library_ms": None},
+        *mb_kernels,
     ]
     print(f"e2e encode MB/s: -c 1 prime on {mb / e2e[True]:.1f}, "
           f"prime off {mb / e2e[False]:.1f}; -c 3 prime on "

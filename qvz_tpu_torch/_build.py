@@ -33,8 +33,8 @@ NVCC_FLAGS = [
 ]
 
 # Kernel launches per wrapper ("quantize", "coder", "hist", "kmeans",
-# "decoder"): each wrapper adds one where it launches its kernel, and
-# nowhere else.
+# "decoder", and the microbenchmark's "issue", "mix" and "selmix"): each
+# wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -127,6 +127,10 @@ def load() -> ctypes.CDLL:
     lib.qvz_decode_lanes.restype = ctypes.c_int
     lib.qvz_decoder_smem_limit.argtypes = []
     lib.qvz_decoder_smem_limit.restype = ctypes.c_int
+    lib.qvz_microbench_issue.argtypes = [p, i32, i32, i32, p, p]
+    lib.qvz_microbench_issue.restype = ctypes.c_int
+    lib.qvz_microbench_mix.argtypes = [i32, i32, p, p, i64, i32, i32, p, p]
+    lib.qvz_microbench_mix.restype = ctypes.c_int
     _lib = lib
     return lib
 

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from qvz_tpu_torch import _build
+from qvz_tpu_torch.device import resolve
 from qvz_tpu_torch.ops.coder_device import (ARITH_M, ARITH_R, FULL,
                                             MSB_BIT, MSB_CLEAR, MSB_SHIFT,
                                             SMSB_SHIFT, STEP, U32,
@@ -421,13 +422,15 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
 
 
 def decode_lanes(dplan: DecodePlan, payloads, draws, cl, states,
-                 device="cpu"):
+                 device="cuda"):
     """The contract of ``qvz_tpu.ops.decoder_device.decode_lanes``: W
     equal-length lanes, payloads a list of W byte strings, draws
     (cols, W, L) uint8, cl (W, L) uint8 cluster ids (zeros with one
     cluster), states W (l, u, t, consumed bits) start tuples. Returns (qv
     (W, L, cols) uint8 symbol values, flags (W,) bool), on `device`'s
-    path: the plain version on the CPU, K5 on a CUDA device."""
+    path: the plain version on the CPU, K5 on a CUDA device (the default;
+    it raises where no card is visible)."""
+    device = resolve(device)
     cols = dplan.columns
     W, L = cl.shape
     dt = torch.from_numpy(np.ascontiguousarray(

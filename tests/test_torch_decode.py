@@ -224,7 +224,7 @@ def test_decode_lanes_contract():
     pays = _payloads(lanes)
     qv, flags = dd.decode_lanes(dd.DecodePlan(cd.LanePlan(tables, None),
                                               tables), pays, draws, cl,
-                                states)
+                                states, device="cpu")
     jqv, jflags = jdd.decode_lanes(
         jdd.DecodePlan(jcd.LanePlan(tables, None), tables), pays, draws, cl,
         states)

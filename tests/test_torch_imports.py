@@ -111,6 +111,9 @@ def test_cuda_without_a_card_raises():
     from qvz_tpu_torch.pipeline import decode
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode.decode(b"QVZ2", device="cuda")
+    from qvz_tpu_torch.ops import decoder_device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decoder_device.decode_lanes(None, [], None, None, [])  # the default
     assert device.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device.resolve("meta")
