@@ -70,13 +70,17 @@ Phases:
      TPU's shape and, for the mix legs, with the leading axis scaled to
      fill the shared memory of every SM; per leg the rate by source ops
      and by the SASS instructions of its kernel's inner loop (cuobjdump),
-     with the loop's opcode counts
+     with the loop's opcode counts and its bound by pipe
 
 Times are CUDA-event times after a warm-up, kernel and plain version
-measured in turns. Each kernel's bound is the larger of its bytes (each
-input read once, each output written once) over 3.35 TB/s and its int32
-operations over the card's SMs x 64 lanes x top SM clock. Every check
-that fails raises, so the script exits non-zero. The last two lines are
+measured in turns. Each kernel's bound (qvz_tpu_torch.roofline) is the
+larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over the card's peak rate: for the
+microbenchmark's kernels the slowest pipe for the SASS of their inner
+loop; for K1-K5 an estimated count of int32 instructions over the
+card's issue rate, SMs x 128 x the top SM clock. A kernel faster than
+its bound fails, as does every other check, so the script exits
+non-zero. The last two lines are
 the kernels' JSON record and the result line {"ok": true, "device":
 {...}}. Without a CUDA device, or without the rest of the repository,
 the script fails before it prints any result.
@@ -92,39 +96,18 @@ import sys
 import time
 
 
-# The card's peak rates for the kernels' bounds: device memory at 3.35
-# TB/s (NVIDIA's data sheet for the H100 SXM), and int32 operations at the
-# card's SMs x 64 int32 lanes x its top SM clock (read from the card). The
-# lane coder and decoder do about STEP_OPS int32 operations a step (the
-# model lookup, the count search and update, two products and divisions,
-# the renormalisation; csrc/coder.cu, csrc/decoder.cu).
-HBM_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_SM = 64
+# The lane coder and decoder take about STEP_OPS int32 instructions a
+# step (the model lookup, the count search and update, two products and
+# divisions, the renormalisation; csrc/coder.cu, csrc/decoder.cu): an
+# estimate, not counted from their SASS, whose loops depend on the data.
 STEP_OPS = 100
 LANES_SWEEP = (32, 16, 8, 4, 2, 1)
-
-
-def int32_ops_per_s(torch) -> float:
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
-    return (torch.cuda.get_device_properties(0).multi_processor_count
-            * INT32_LANES_PER_SM * mhz * 1e6)
-
-
-def bound(nbytes: float, ops: float, ops_rate: float):
-    """(least ms, "bytes" or "operations"): each input read once, each
-    output written once, over the memory rate, against the operations
-    over the int32 rate."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / ops_rate * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def k5_bound(lanes, cols: int, ops_rate: float):
     """K5 over all columns: the lanes' draws, payloads and cluster ids in,
     the text rows and states out; STEP_OPS a step."""
+    from qvz_tpu_torch.roofline import bound
     n = int(sum(lanes.lane_counts))
     nbytes = (n * cols + int(lanes.pays.lens.sum())
               + (n if lanes.cl is not None else 0) + n * (cols + 1)
@@ -135,13 +118,6 @@ def k5_bound(lanes, cols: int, ops_rate: float):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def event_ms(fn, torch) -> float:
@@ -197,6 +173,7 @@ def clustered_phases(torch, np, data, dist, card, rate) -> dict:
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
     from qvz_tpu_torch.pipeline import host
+    from qvz_tpu_torch.roofline import bound
     from qvz_tpu_torch.spec.kmeans import seed_centroids
 
     K, T = 3, 4.0
@@ -582,7 +559,7 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
     return res
 
 
-def microbench_phase(rate) -> list:
+def microbench_phase() -> list:
     """Phase 15: the microbenchmark's legs (qvz_tpu_torch.microbench);
     returns its three kernels' entries of the kernels line."""
     from qvz_tpu_torch import _build
@@ -590,7 +567,7 @@ def microbench_phase(rate) -> list:
 
     _build.LAUNCHES.clear()
     t = time.perf_counter()
-    res = mb.run_legs("cuda", rate=rate, prefix="[15] ")
+    res = mb.run_legs("cuda", prefix="[15] ")
     launches = dict(_build.LAUNCHES)
     entries = []
     for name in ("issue", "mix", "selmix"):
@@ -627,10 +604,15 @@ def main() -> int:
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
     from qvz_tpu_torch.pipeline import host
+    from qvz_tpu_torch.roofline import (ALU_LANES_PER_SM, FMA_LANES_PER_SM,
+                                        HBM_BYTES_PER_S, SHARED_WORDS_PER_SM,
+                                        bound)
+    from qvz_tpu_torch.roofline import card as read_card
 
     dev = torch.device("cuda")
-    card = smi()
-    rate = int32_ops_per_s(torch)
+    gpu = read_card(dev)
+    card = gpu.name
+    rate = gpu.int32_per_s
 
     # -- 0. the card ------------------------------------------------------
     print(f"[0] card: {card}")
@@ -640,8 +622,13 @@ def main() -> int:
     nv = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                         text=True, check=True).stdout.strip().splitlines()
     print(f"[0] nvcc: {nv[-1] if nv else '?'}", flush=True)
-    print(f"[0] bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s device memory, "
-          f"{rate / 1e12:.2f} T int32 operations/s", flush=True)
+    print(f"[0] bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s device memory; "
+          f"{rate / 1e12:.2f} T int32 instructions/s issued ({gpu.sms} SMs x "
+          f"128 x {gpu.hz / 1e6:.0f} MHz); by pipe, per s: "
+          f"{gpu.per_s(ALU_LANES_PER_SM) / 1e12:.2f} T ALU, "
+          f"{gpu.per_s(FMA_LANES_PER_SM) / 1e12:.2f} T IMAD, "
+          f"{gpu.per_s(SHARED_WORDS_PER_SM) / 1e12:.2f} T shared words",
+          flush=True)
 
     # -- 1. build ---------------------------------------------------------
     t = time.perf_counter()
@@ -822,7 +809,7 @@ def main() -> int:
     launches["decoder"] = dec["launches"]["decoder"]
 
     # -- 15. the integer-issue microbenchmark --------------------------------
-    mb_kernels = microbench_phase(rate)
+    mb_kernels = microbench_phase()
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -863,6 +850,9 @@ def main() -> int:
          "bound_by": dec["bound"][1], "library_ms": None},
         *mb_kernels,
     ]
+    for k in kernels:
+        require(k["ms"] >= k["bound_ms"],
+                f"{k['name']} ({k['ms']} ms) no faster than its bound")
     print(f"e2e encode MB/s: -c 1 prime on {mb / e2e[True]:.1f}, "
           f"prime off {mb / e2e[False]:.1f}; -c 3 prime on "
           f"{mb / clus['e2e'][True]:.1f}, prime off "

@@ -27,9 +27,12 @@ same trailing shape with the leading axis scaled until c and kw fill
 about 200 KB of shared memory on every SM (tag suffix ``@card``), the
 card-wide rate. Each leg reports Top/s by the script's source-op count
 and by the SASS instructions of its kernel's inner loop (read with
-``cuobjdump -sass`` from the built library), elements/s, the bound, the
-replication (``tiles``, or rows and blocks) and the SM clock and power
-draw that nvidia-smi reads while the leg keeps the card busy.
+``cuobjdump -sass`` from the built library), elements/s, the replication
+(``tiles``, or rows and blocks), the SM clock and power draw that
+nvidia-smi reads while the leg keeps the card busy, and its bound: the
+least time of each pipe for the loop's instructions and shared-memory
+words (``roofline.pipe_ms``), the slowest of which bounds. A leg that
+runs faster than its bound fails.
 
 ``main()`` writes ``build/microbench_torch.json``, with the card's name
 and power limit on every leg; it never writes the TPU record
@@ -53,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qvz_tpu_torch import _build
+from qvz_tpu_torch import _build, roofline
 from qvz_tpu_torch.device import resolve
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -64,8 +67,6 @@ TILE = (8, 128)
 OPS_PER_ELEM = 10
 CHECK_REPS = 6               # the TPU script's checksum reps
 ISSUE_CHECK_REPS = 4096      # the issue legs' equality check on the card
-HBM_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_SM = 64
 BLOCKS_PER_SM = 2            # mix blocks resident on an SM
 ISSUE_TILES_PER_SM = 2       # 2 x 1,024 issue threads: a full SM
 FILL_BYTES = 200 * 1024      # c and kw in shared memory per SM, card-wide
@@ -371,11 +372,14 @@ def run_plain(leg: Leg, reps: int, kw=None, c=None, x=None, tiles=1):
 # "/*0150*/  @!P0 BRA 0x90 ;": address, predicate, opcode, operands
 _INSN = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
+# 4-byte words that one thread's LDS or STS moves, by its width
+_WORDS = {"U8": 0.25, "S8": 0.25, "U16": 0.5, "S16": 0.5, "64": 2, "128": 4}
 
 
 def _inner_loop(insns):
-    """Opcode counts of a function's largest innermost loop: the span from
-    a backward branch's target to the branch."""
+    """Opcode counts of a function's largest innermost loop (the span from
+    a backward branch's target to the branch), and its instructions by
+    pipe (roofline's "alu", "fma", "issue": all) and shared words."""
     loops = []
     for addr, op, args in insns:
         m = re.search(r"0x([0-9a-f]+)", args)
@@ -388,24 +392,34 @@ def _inner_loop(insns):
         raise RuntimeError("no loop found in the kernel's SASS")
     lo, hi = max(inner, key=lambda s: s[1] - s[0])
     counts = {k: 0 for k in SASS_OPS}
-    total = 0
+    pipes = {"issue": 0, "alu": 0, "fma": 0, "shared": 0}
     for addr, op, _ in insns:
         if lo <= addr <= hi:
-            total += 1
-            base = op.split(".")[0]
+            pipes["issue"] += 1
+            base, *mods = op.split(".")
             if base in counts:
                 counts[base] += 1
-    counts["total"] = total
-    return counts
+            if base in roofline.ALU_OPS:
+                pipes["alu"] += 1
+            elif base in roofline.FMA_OPS:
+                pipes["fma"] += 1
+            elif base in ("LDS", "STS"):
+                pipes["shared"] += _WORDS.get(next(
+                    (m for m in mods if m in _WORDS), None), 1)
+    counts["total"] = pipes["issue"]
+    return counts, pipes
 
 
-def sass_loops(path: pathlib.Path | None = None) -> dict:
+def sass_loops() -> dict:
     """{variant: inner-loop opcode counts, and "per_elem", the loop's
-    instructions for one element (one thread-rep of the 8 chains for the
-    issue kernels, one step for sel_b4)} from ``cuobjdump -sass`` of the
-    built library."""
+    instructions for one element by pipe ("alu", "fma", "issue") and its
+    shared-memory words ("shared"); an element is one thread-rep of the
+    8 chains for the issue kernels, one step for sel_b4} from
+    ``cuobjdump -sass`` of the library, built first if this source hash
+    has none."""
+    _build.load()
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(path or _build.lib_path())],
+    text = subprocess.run([str(tool), "-sass", str(_build.lib_path())],
                           capture_output=True, text=True, check=True).stdout
     funcs = {}
     name = None
@@ -422,7 +436,7 @@ def sass_loops(path: pathlib.Path | None = None) -> dict:
     for variant, sym in SYMBOLS.items():
         if sym not in funcs:
             raise RuntimeError(f"{sym} not in the SASS of the library")
-        counts = _inner_loop(funcs[sym])
+        counts, pipes = _inner_loop(funcs[sym])
         # elements in one pass of the loop: the stores of c (loads for the
         # sweep; 4 steps a store for sel_b4, whose rate counts steps), or
         # for the issue kernels the reps it unrolls
@@ -433,29 +447,12 @@ def sass_loops(path: pathlib.Path | None = None) -> dict:
         if units < 1:
             raise RuntimeError(f"{sym}: cannot count the elements of its "
                                f"inner loop {counts}")
-        counts["per_elem"] = counts["total"] / units
+        counts["per_elem"] = {k: v / units for k, v in pipes.items()}
         out[variant] = counts
     return out
 
 
-# -- the card -----------------------------------------------------------------
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
-def int32_ops_per_s(dev) -> float:
-    """SMs x 64 int32 lanes x the top SM clock (the estimate K2's and K5's
-    bounds use)."""
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
-    return _sms(dev) * INT32_LANES_PER_SM * mhz * 1e6
-
+# -- timing -------------------------------------------------------------------
 
 def _event_ms(fn) -> float:
     start = torch.cuda.Event(enable_timing=True)
@@ -472,10 +469,7 @@ def _clock_under_load(fn, ms: float) -> str:
     half a second of fn's launches (ms each) keeps the card busy."""
     for _ in range(math.ceil(500 / max(ms, 1e-3))):
         fn()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = roofline.smi("clocks.sm,power.draw")
     torch.cuda.synchronize()
     return smi
 
@@ -485,20 +479,11 @@ def _require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def _bound(nbytes: float, ops: float, rate: float):
-    """(least ms, "bytes" or "operations"): the bytes over the memory
-    rate against the source ops over the int32 rate."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / rate * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
 def _err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def run_legs(device="cuda", rate: float | None = None,
-             prefix: str = "") -> dict:
+def run_legs(device="cuda", prefix: str = "") -> dict:
     """Every leg on the card: checked, timed and printed (each line starts
     with `prefix`). Returns {"card", "legs": {tag: record}, "kernels":
     {kernel: the kernels-line entry of its NAMED leg, without launches}}.
@@ -506,9 +491,8 @@ def run_legs(device="cuda", rate: float | None = None,
     dev = resolve(device)
     if dev.type != "cuda":
         raise ValueError("the microbenchmark measures a CUDA card")
-    smi = card()
-    rate = rate or int32_ops_per_s(dev)
-    sms = _sms(dev)
+    gpu = roofline.card(dev)
+    sms = gpu.sms
     sass = sass_loops()
     legs, kernels = {}, {}
     errs = {"issue": 0, "mix": 0, "selmix": 0}
@@ -519,6 +503,15 @@ def run_legs(device="cuda", rate: float | None = None,
         _require(err == 0 and torch.equal(got, want),
                  f"{leg.tag} {what}: kernel equals its plain version")
 
+    def bounded(leg, tag, ms, elems, nbytes):
+        """The leg's bound (roofline.pipe_bound of its SASS), which its
+        time must not beat."""
+        b = roofline.pipe_bound(gpu, sass[leg.variant]["per_elem"], elems,
+                                nbytes)
+        _require(ms >= b[0], f"{tag}: {ms:.4f} ms is no less than its "
+                 f"bound {b[0]:.4f} ms ({b[2]})")
+        return b
+
     def timed(leg, tag, args, elems, nbytes, extra):
         fn = lambda: run_kernel(leg, leg.reps, **args)  # noqa: E731
         out = fn()
@@ -527,26 +520,30 @@ def run_legs(device="cuda", rate: float | None = None,
         under_load = _clock_under_load(fn, ms)
         ops = leg.ops_per_elem * elems
         s = sass[leg.variant]
-        bound_ms, bound_by = _bound(nbytes, ops, rate)
-        rec = {"card": smi, "kernel": leg.kernel, "variant": leg.variant,
-               "reps": leg.reps, "wall_ms": ms, "runs_ms": runs,
-               "Top_s": ops / ms / 1e9,
-               "Top_s_sass": s["per_elem"] * elems / ms / 1e9,
+        bound_ms, bound_by, pipe = bounded(leg, tag, ms, elems, nbytes)
+        shares = {k: v / ms for k, v in roofline.pipe_ms(
+            gpu, s["per_elem"], elems, nbytes).items()}
+        rec = {"card": gpu.name, "kernel": leg.kernel,
+               "variant": leg.variant, "reps": leg.reps, "wall_ms": ms,
+               "runs_ms": runs, "Top_s": ops / ms / 1e9,
+               "Top_s_sass": s["per_elem"]["issue"] * elems / ms / 1e9,
                "elem_G_s": elems / ms / 1e6,
                "ops_per_elem": leg.ops_per_elem,
                "sass_per_elem": s["per_elem"],
                "sass_loop": {k: v for k, v in s.items() if k != "per_elem"},
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_pipe": pipe, "pipe_share": shares,
                "clock_power_under_load": under_load, "checksum": "ok",
                **extra}
         legs[tag] = rec
         print(f"{prefix}{tag}: {ms:.4f} ms (median of 5); "
               f"{rec['Top_s']:.3f} Top/s by source ops "
               f"({leg.ops_per_elem} an element), {rec['Top_s_sass']:.3f} by "
-              f"SASS ({s['per_elem']:.2f} an element); "
-              f"{rec['elem_G_s']:.2f} G elements/s; bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
-              f"{json.dumps(extra)}; SM clock, power under load "
+              f"SASS ({s['per_elem']['issue']:.2f} an element); "
+              f"{rec['elem_G_s']:.2f} G elements/s; bound {bound_ms:.4f} ms "
+              f"({pipe}); share of each pipe's rate "
+              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+              + f"; {json.dumps(extra)}; SM clock, power under load "
               f"{under_load}; SASS loop {json.dumps(rec['sass_loop'])}",
               flush=True)
         return out
@@ -559,10 +556,9 @@ def run_legs(device="cuda", rate: float | None = None,
                 args = dict(x=x, tiles=tiles)
                 if leg.tag == NAMED["issue"] and reps == ISSUE_CHECK_REPS:
                     got, want, k_ms, p_ms = _in_turns(leg, reps, args)
-                    elems = reps * tiles * 1024
-                    kernels["issue"] = _entry(
-                        leg, k_ms, p_ms, elems, x.numel() * 4
-                        + tiles * 1024 * 4, rate)
+                    kernels["issue"] = _entry(leg, k_ms, p_ms, bounded(
+                        leg, leg.tag, k_ms, reps * tiles * 1024,
+                        x.numel() * 4 + tiles * 1024 * 4))
                 else:
                     got = run_kernel(leg, reps, **args)
                     want = run_plain(leg, reps, **args)
@@ -596,8 +592,8 @@ def run_legs(device="cuda", rate: float | None = None,
                 # version (in turns for the named leg)
                 if NAMED[leg.kernel] == leg.tag:
                     got, want, k_ms, p_ms = _in_turns(leg, leg.reps, args)
-                    kernels[leg.kernel] = _entry(leg, k_ms, p_ms, elems,
-                                                 nbytes, rate)
+                    kernels[leg.kernel] = _entry(leg, k_ms, p_ms, bounded(
+                        leg, leg.tag, k_ms, elems, nbytes))
                 else:
                     got = run_kernel(leg, leg.reps, **args)
                     want = run_plain(leg, leg.reps, **args)
@@ -609,8 +605,17 @@ def run_legs(device="cuda", rate: float | None = None,
             del kw, c, args
     for name, entry in kernels.items():
         entry["max_abs_err"] = errs[name]
-    return {"card": smi, "int32_ops_per_s": rate, "legs": legs,
+    return {"card": gpu.name, "peaks_per_s": _peaks(gpu), "legs": legs,
             "kernels": kernels}
+
+
+def _peaks(gpu) -> dict:
+    """The card's rates that the bounds divide by."""
+    return {"memory_bytes": roofline.HBM_BYTES_PER_S,
+            "alu": gpu.per_s(roofline.ALU_LANES_PER_SM),
+            "fma": gpu.per_s(roofline.FMA_LANES_PER_SM),
+            "issue": gpu.per_s(roofline.ISSUE_LANES_PER_SM),
+            "shared_words": gpu.per_s(roofline.SHARED_WORDS_PER_SM)}
 
 
 def _in_turns(leg, reps, args):
@@ -633,16 +638,16 @@ def _in_turns(leg, reps, args):
     return out["k"], out["p"], statistics.median(ks), statistics.median(ps)
 
 
-def _entry(leg, ms, plain_ms, elems, nbytes, rate) -> dict:
+def _entry(leg, ms, plain_ms, bound) -> dict:
     """A kernels-line entry (chip_smoke.py adds the launches): the leg's
-    times beside its bound, the source ops over the int32 rate against
-    the bytes over the memory rate."""
-    bound_ms, bound_by = _bound(nbytes, leg.ops_per_elem * elems, rate)
+    times beside its bound, (ms, "bytes" or "operations", pipe) from
+    roofline.pipe_bound."""
     return {"name": leg.kernel, "route": "cuda",
             "source": "qvz_tpu_torch/csrc/microbench.cu",
             "replaces": f"scripts/vpu_microbench.py:{SOURCES[leg.kernel]}",
             "leg": leg.tag, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_pipe": bound[2], "library_ms": None}
 
 
 def main() -> int:
@@ -653,7 +658,7 @@ def main() -> int:
     res = run_legs("cuda")
     record = {"ts": time.time(), "card": res["card"],
               "device": torch.cuda.get_device_name(0),
-              "int32_ops_per_s": res["int32_ops_per_s"],
+              "peaks_per_s": res["peaks_per_s"],
               "seconds": time.perf_counter() - t, "legs": res["legs"],
               "kernels": res["kernels"]}
     OUT.parent.mkdir(exist_ok=True)

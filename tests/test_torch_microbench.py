@@ -10,6 +10,7 @@ versions (what its wrappers run on CPU tensors) element-equal to them.
 import ast
 import pathlib
 from functools import partial
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +20,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from qvz_tpu_torch import _build
+from qvz_tpu_torch import _build, roofline
 from qvz_tpu_torch import microbench as mb
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -177,19 +178,22 @@ def test_leg_table_is_the_scripts():
 
 def test_kernel_entry_has_the_contract_keys():
     """An entry of chip_smoke.py's kernels line, without the launches it
-    adds: the named leg's times and its bound, source ops over the int32
-    rate against the bytes over the memory rate."""
+    adds: the named leg's times and its bound, the slowest pipe for the
+    SASS of the kernel's loop against the bytes over the memory rate."""
     leg = next(leg for leg in mb.LEGS if leg.tag == mb.NAMED["mix"])
-    e = mb._entry(leg, 3.0, 800.0, elems=8000 * 512 * 1024,
-                  nbytes=4 * (2 * 512 * 1024 + 1024), rate=16.73e12)
+    gpu = roofline.Card("H100", 132, 1.98e9)
+    per_elem = {"issue": 14, "alu": 5.25, "fma": 5, "shared": 3}
+    elems = 8000 * 512 * 1024
+    e = mb._entry(leg, 3.0, 800.0, roofline.pipe_bound(
+        gpu, per_elem, elems, 4 * (2 * 512 * 1024 + 1024)))
     assert set(e) >= {"name", "route", "source", "replaces", "ms",
                       "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert e["replaces"] == "scripts/vpu_microbench.py:198"
     assert (ROOT / e["source"]).exists() and e["route"] == "cuda"
     assert e["bound_by"] == "operations" and e["library_ms"] is None
+    assert e["bound_pipe"] == "issue"
     assert e["bound_ms"] == pytest.approx(
-        10 * 8000 * 512 * 1024 / 16.73e12 * 1e3)
-    assert mb._bound(3.35e9, 1, 1e12) == (pytest.approx(1.0), "bytes")
+        14 * elems / (132 * 128 * 1.98e9) * 1e3)
 
 
 def test_out_is_not_the_tpu_record():
@@ -262,9 +266,10 @@ SASS = """
 def test_inner_loop_of_sass():
     insns = [(int(m.group(1), 16), m.group(2), m.group(3))
              for m in map(mb._INSN.match, SASS.splitlines()) if m]
-    counts = mb._inner_loop(insns)
+    counts, pipes = mb._inner_loop(insns)
     assert counts == {"IADD3": 1, "LOP3": 0, "ISETP": 1, "SEL": 1, "LEA": 0,
                       "VIADD": 0, "IMAD": 1, "LDS": 2, "STS": 1, "total": 8}
+    assert pipes == {"issue": 8, "alu": 3, "fma": 1, "shared": 3}
 
 
 def _fake_function(sym, body):
@@ -280,24 +285,57 @@ def _fake_function(sym, body):
     return "\n".join(lines)
 
 
-def test_sass_loops_count_per_element(monkeypatch):
-    """Instructions an element: a thread-rep of the 8 chains for the
-    issue kernels, a store of c for the mix, a step for sel_b4 (4 a
-    store), a load for the sweep."""
+def _fake_sass():
     issue = ["LOP3"] * 8 + ["ISETP.GT.AND"] * 8 + ["IADD3"] * 8
-    mixb = ["LDS", "LDS", "IADD3", "ISETP.GE.U32.AND", "SEL", "STS"]
-    text = "\n".join(_fake_function(sym, issue if v in mb.ISSUE_OPS else
-                                    ["LDS", "LDS", "IADD3"]
+    mixb = ["LDS", "LDS", "IADD3", "ISETP.GE.U32.AND", "IMAD.IADD", "STS"]
+    return "\n".join(_fake_function(sym, issue if v in mb.ISSUE_OPS else
+                                    ["LDS.64", "IADD3"]
                                     if v == "sweeponly" else mixb)
                      for v, sym in mb.SYMBOLS.items())
+
+
+def test_sass_loops_count_per_element(monkeypatch):
+    """Instructions an element, by pipe: a thread-rep of the 8 chains for
+    the issue kernels, a store of c for the mix, a step for sel_b4 (4 a
+    store), a load for the sweep; shared words by the access's width."""
+    text = _fake_sass()
+    monkeypatch.setattr(_build, "load", lambda: None)
     monkeypatch.setattr(_build, "nvcc", lambda: "/cuda/bin/nvcc")
     monkeypatch.setattr(mb.subprocess, "run",
                         lambda *a, **k: type("R", (), {"stdout": text}))
-    got = mb.sass_loops(pathlib.Path("lib.so"))
+    got = mb.sass_loops()
+    issue = {"issue": 25, "alu": 24, "fma": 0, "shared": 0}
+    mixb = {"issue": 7, "alu": 2, "fma": 1, "shared": 3}
     assert {v: c["per_elem"] for v, c in got.items()} == {
-        "addxor": 25, "cmpsel": 25, "mix": 7, "sel": 7, "sel_b4": 7 / 4,
-        "sweeponly": 2}
+        "addxor": issue, "cmpsel": issue, "mix": mixb, "sel": mixb,
+        "sel_b4": {k: v / 4 for k, v in mixb.items()},
+        "sweeponly": {"issue": 3, "alu": 1, "fma": 0, "shared": 2}}
     assert got["mix"]["LDS"] == 2 and got["mix"]["total"] == 7
+
+
+def test_sass_loops_builds_the_library_first(monkeypatch, tmp_path):
+    """With no library for this source hash, sass_loops builds it before
+    it reads the library's SASS."""
+    lib = tmp_path / "libqvz_cuda_0.so"
+    built = []
+
+    def build(path):
+        built.append(path)
+        path.write_bytes(b"")
+        return ""
+
+    def run(cmd, **kw):
+        assert cmd[-1] == str(lib) and lib.exists(), "read before the build"
+        return type("R", (), {"stdout": _fake_sass()})
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "lib_path", lambda: lib)
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: mock.MagicMock())
+    monkeypatch.setattr(_build, "nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(mb.subprocess, "run", run)
+    assert set(mb.sass_loops()) == set(mb.SYMBOLS)
+    assert built == [lib]
 
 
 @pytest.mark.cuda
