@@ -11,24 +11,29 @@ Illumina-like quality scores made from seed 42, -f 0.5, MSE, --shards 0
 Phases:
 
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc
-  1. build the eight kernels (csrc/quantize.cu K1, csrc/coder.cu K2,
-     csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5, and the
+  1. build the nine kernels (csrc/quantize.cu K1, csrc/coder.cu K2a and
+     K2b, csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5, and the
      microbenchmark's issue, mix and selmix in csrc/microbench.cu) from
      the sources for sm_90a, one nvcc per source in parallel, with the
      ptxas report
   2. the input; device statistics (K3, one cluster) checked equal to the
      host C++ counts; codebook design
   3. K1 against its plain PyTorch version at the full shape: element-equal
-  4. K2 against its plain version on the slice's lane plan: words, carry
-     and flags equal lane by lane, payload bytes equal
+  4. K2a (the triples) and K2b (the chain) each against its plain
+     version over all 100 columns of the slice's lane plan, one chunk:
+     triples and rescale flags element-equal; words, carry and flags
+     equal lane by lane, payload bytes equal; code_lanes equal to the
+     two in turn. K2a timed in turns with its plain version, K2b over
+     5 runs (its plain version once, tens of seconds); K2b's cycles a
+     step; both bounds from their counted SASS (coder_bounds)
   5. the end-to-end encode, -c 1, through
      qvz_tpu_torch.pipeline.encode.encode, timed as the median of 5 runs
      without -u (the phase split is the last run's): the container
      byte-equal to the port's host engine (qvz_tpu_torch.pipeline.host,
      pure C++, held byte-equal to qvz_tpu's by the CPU tests) for the same
      shards, priming and seed; decoded by the host decoder to the
-     port's reconstruction; -s figures equal; hist, quantize and coder
-     launched by the encode itself
+     port's reconstruction; -s figures equal; hist, quantize,
+     coder_triples and coder_chain launched by the encode itself
   6. K4, one k-means step at K = 3 from seed_centroids, against its plain
      version (assign, sums and counts equal), also with two identical
      means (every tie to the lower index); then kmeans_cluster on the
@@ -39,12 +44,12 @@ Phases:
      (column, cluster*72 + previous, current) index, timed as K3's library
      yardstick (the port never calls it)
   8. K1 with the k-means ids against its plain version at the full shape
-  9. K2 with the cluster-id segment against its plain version, on the
-     segment and the first columns (the plain loop over all 100 columns
-     would take another ~50 s); the kernel's time is over all columns
+  9. K2a and K2b with the cluster-id segment (K2b's first pass) against
+     their plain versions over all columns, as in 4
  10. the end-to-end encode, -c 3 -T 4, median of 3 runs without -u, primed
      and unprimed: checked as in 5 against the port's host engine with
-     n_clusters=3; hist, kmeans, quantize and coder launched by the encode
+     n_clusters=3; hist, kmeans, quantize, coder_triples and coder_chain
+     launched by the encode
  11. K5 against its plain version on the lanes of the four containers of
      phases 5 and 10: on the first 2 columns of every lane the rows, the
      final (l, u, t, bit position) and the flags equal, and over all
@@ -56,7 +61,10 @@ Phases:
      runs beside the port's host decoder in the same call: byte-equal to
      it and to the encode's -u reconstruction + 33, no lane flagged (K2
      flagged none, and the flags are the encode's own rescale
-     condition), the decoder launched by the decodes
+     condition), the decoder launched by the decodes; the first decode's
+     peak device memory (torch.cuda.max_memory_allocated), its host RSS
+     (the peak, VmHWM, where the process may reset it, else the RSS
+     after) and its waves of lanes
  13. 300,000 x 2 at --shards 2, unprimed, whose two lanes reach the
      rescale: flagged, decoded again on the host, byte-equal
  14. K5 over all columns of the four containers at 32, 16, 8, 4, 2 and 1
@@ -71,14 +79,21 @@ Phases:
      fill the shared memory of every SM; per leg the rate by source ops
      and by the SASS instructions of its kernel's inner loop (cuobjdump),
      with the loop's opcode counts and its bound by pipe
+ 16. 200,000 x 20 at -c REFUSED_K, whose plan K5 refuses (and takes at
+     one cluster fewer): the encode on the card byte-equal to the host
+     engine, K2a taking the plan or its lanes coded on the host (counted,
+     with the reason); decode(device="cuda") byte-equal to the host
+     decoder, every lane refused before any launch, counted
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns. Each kernel's bound (qvz_tpu_torch.roofline) is the
 larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the card's peak rate: for the
 microbenchmark's kernels the slowest pipe for the SASS of their inner
-loop; for K1-K5 an estimated count of int32 instructions over the
-card's issue rate, SMs x 128 x the top SM clock. A kernel faster than
+loop; for K2a and K2b the slowest pipe for the least instructions of
+each of their loops' trips in their SASS times this run's trips; for K1,
+K3, K4 and K5 an estimated count of int32 instructions over the card's
+issue rate, SMs x 128 x the top SM clock. A kernel faster than
 its bound fails, as does every other check, so the script exits
 non-zero. The last two lines are
 the kernels' JSON record and the result line {"ok": true, "device":
@@ -96,12 +111,15 @@ import sys
 import time
 
 
-# The lane coder and decoder take about STEP_OPS int32 instructions a
-# step (the model lookup, the count search and update, two products and
-# divisions, the renormalisation; csrc/coder.cu, csrc/decoder.cu): an
-# estimate, not counted from their SASS, whose loops depend on the data.
+# The lane decoder takes about STEP_OPS int32 instructions a step (the
+# model lookup, the count search and update, two products and divisions,
+# the renormalisation; csrc/decoder.cu): an estimate, not counted from its
+# SASS. K2's bounds are counted from its SASS (coder_bounds).
 STEP_OPS = 100
 LANES_SWEEP = (32, 16, 8, 4, 2, 1)
+# Phase 16's cluster count: at 200,000 x 20 the first K above 149 whose
+# plan K5 refuses (the card's shared memory); the phase checks both.
+REFUSED_K = 150
 
 
 def k5_bound(lanes, cols: int, ops_rate: float):
@@ -113,6 +131,220 @@ def k5_bound(lanes, cols: int, ops_rate: float):
               + (n if lanes.cl is not None else 0) + n * (cols + 1)
               + len(lanes.lane_counts) * (4 + 5) * 8)
     return bound(nbytes, n * cols * STEP_OPS, ops_rate)
+
+
+def _loop(mb, insns, has: str, inside=None, without=None):
+    """The smallest loop of `insns` (head, end) with an instruction of
+    opcode prefix `has`, none of prefix `without`, nested in `inside`."""
+    spans = [(h, e) for h, e in mb.loop_spans(insns).items()
+             if (inside is None or inside[0] < h <= e <= inside[1])]
+    found = []
+    for h, e in spans:
+        ops = [i[1] for i in insns if h <= i[0] <= e]
+        if any(o.startswith(has) for o in ops) and not (
+                without and any(o.startswith(without) for o in ops)):
+            found.append((h, e))
+    require(bool(found), f"a loop with {has} in the SASS")
+    return min(found, key=lambda s: s[1] - s[0])
+
+
+def coder_bounds(gpu, plan_t, W: int, L: int, n_lines: int, cols: int,
+                 live: int, sum_x: int, bytes_a: float, bytes_b: float):
+    """K2a's and K2b's bounds from their counted SASS (roofline.pipe_ms):
+    each inner loop's least trip by pipe (microbench.trip_min) times its
+    trips on this run's data. K2a: the zeroing of the uses, W x the
+    16-byte stores a column; the steps, cols x W x L trips, the live ones
+    through the count store; the prefix sum, sum_x trips (the symbol
+    indices of the live steps). K2b: cols x
+    n_lines steps, the live ones through the reciprocal. Returns {name:
+    (ms, "bytes" or "operations", pipe, per-pipe instructions)}."""
+    import numpy as np
+    from qvz_tpu_torch import microbench as mb
+    from qvz_tpu_torch.roofline import pipe_ms
+
+    funcs = mb.sass_functions()
+
+    def func(tag):
+        names = [k for k in funcs if tag in k]
+        require(len(names) == 1, f"one {tag} in the library's SASS")
+        return funcs[names[0]]
+
+    def add(total, trips, per):
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + trips * v
+
+    a, b = func("triples_kernel"), func("chain_kernel")
+    zero = _loop(mb, a, "STS.128")
+    step = _loop(mb, a, "STG.E.64", without="BAR")
+    prefix = _loop(mb, a, "LDS.U16", inside=step)
+    chain = _loop(mb, b, "MUFU.RCP")
+    per_col = (np.ceil(plan_t["col_slots"].cpu().numpy() / 8)
+               + np.ceil(np.diff(plan_t["col_model_off"].cpu().numpy()) / 8))
+    ta, tb = {}, {}
+    add(ta, W * float(per_col.sum()), mb.trip_min(a, zero[0]))
+    add(ta, cols * W * L - live, mb.trip_min(a, step[0]))
+    add(ta, live, mb.trip_min(a, step[0], "STS.U16"))
+    add(ta, sum_x, mb.trip_min(a, prefix[0]))
+    add(tb, cols * n_lines - live, mb.trip_min(b, chain[0]))
+    add(tb, live, mb.trip_min(b, chain[0], "MUFU.RCP"))
+    out = {}
+    for name, tot, nbytes in (("coder_triples", ta, bytes_a),
+                              ("coder_chain", tb, bytes_b)):
+        t = pipe_ms(gpu, tot, 1, nbytes)
+        pipe = max(t, key=t.get)
+        out[name] = (t[pipe], "bytes" if pipe == "memory" else "operations",
+                     pipe, tot)
+    return out
+
+
+def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
+                tag: str) -> dict:
+    """K2a and K2b against their plain versions over all columns, one
+    chunk (the segment's chain first where ctrip is given), and K2 through
+    code_lanes against both; times, bounds and K2b's cycles a step."""
+    from qvz_tpu_torch.ops import coder_device as cd
+
+    dev = mid.device
+    cols = mid.shape[0]
+    W, L = len(lane_counts), max(lane_counts)
+    N = int(sum(lane_counts))
+    require(cd.chunk_columns(cols, W, L) == cols,
+            f"{tag} all {cols} columns in one chunk")
+    mw = -(-(cols + (ctrip is not None)) * L * cd.BITS_PER_STEP_BOUND
+           // 32) + 2
+    out = {}
+
+    def a_kernel():
+        out["a"] = cd.triples(plan_t, mid, qs, lane_counts, base, 0, cols)
+
+    def a_plain():
+        out["ap"] = cd.triples_reference(plan_t, mid, qs, lane_counts, base,
+                                         0, cols)
+
+    a_ms, a_plain_ms, a_runs, _ = in_turns(a_kernel, a_plain, torch, runs=3)
+    (trip, resc), (trip_p, resc_p) = out.pop("a"), out.pop("ap")
+    err_a = max_err([trip, resc], [trip_p, resc_p])
+    require(err_a == 0 and torch.equal(trip, trip_p)
+            and torch.equal(resc, resc_p),
+            f"{tag} K2a's triples and rescale flags equal the plain "
+            f"version's over all {cols} columns")
+    del trip_p
+
+    seg = (cd.segment_triples(ctrip, lane_counts, dev) if ctrip is not None
+           else None)
+
+    def start(chain):
+        raw = cd.start_raw(W, dev, mw)
+        raw[2][5] |= resc.long()
+        return chain(seg, 1, lane_counts, raw) if seg is not None else raw
+
+    b_runs = []
+    for _ in range(5):
+        got = start(cd.chain)
+        torch.cuda.synchronize()
+        b_runs.append(event_ms(
+            lambda: cd.chain(trip, cols, lane_counts, got), torch))
+    b_ms = statistics.median(b_runs)
+    t = time.perf_counter()
+    want = cd.chain_reference(trip, cols, lane_counts,
+                              start(cd.chain_reference))
+    torch.cuda.synchronize()
+    b_plain_ms = (time.perf_counter() - t) * 1e3
+    full = cd.code_lanes(plan_t, mid, qs, lane_counts, base, ctrip)
+    fetched = [cd.fetch_lanes(*r) for r in (got, want, full)]
+    (wk, nk, ck), (wp, np_, cp), (wf, nf, cf) = fetched
+    fk = ck[5] != 0
+    require(np.array_equal(fk, cp[5] != 0) and np.array_equal(fk, cf[5] != 0),
+            f"{tag} K2b's flags equal the plain version's")
+    ok = ~fk
+    err_b = int(np.abs(ck[:5, ok] - cp[:5, ok]).max(initial=0))
+    for w in np.flatnonzero(ok):
+        if nk[w]:
+            err_b = max(err_b, int(np.abs(wk[w, :nk[w]].astype(np.int64)
+                                          - wp[w, :np_[w]].astype(np.int64)
+                                          ).max()))
+    require(np.array_equal(nk[ok], np_[ok]) and err_b == 0,
+            f"{tag} K2b's words and carry equal the plain version's")
+    require(np.array_equal(nk, nf) and np.array_equal(ck, cf)
+            and all(np.array_equal(wk[w, :nk[w]], wf[w, :nf[w]])
+                    for w in range(W)),
+            f"{tag} code_lanes equals K2a and K2b in turn")
+    pays = cd.payloads_from_raw(wk, nk, ck)[0]
+    require(pays == cd.payloads_from_raw(wp, np_, cp)[0],
+            f"{tag} K2 payload bytes equal the plain version's")
+
+    m = mid[:, base:base + N]
+    live_m = (m > 0) & (plan_t["cards"].long()[m.long()] > 1)
+    live = int((trip != 0).sum())
+    require(live == int(live_m.sum()) or fk.any(),
+            f"{tag} a triple for every live step")
+    sum_x = int(qs[:, base:base + N][live_m].sum())
+    bounds = coder_bounds(
+        gpu, plan_t, W, L, N, cols, live, sum_x,
+        8 * cols * N + 8 * cols * L * W,
+        8 * cols * N + 4 * int(nk.sum()) + (6 * 8 + 4) * W)
+    cycles = b_ms * 1e-3 * gpu.hz / (cols * L)
+    print(f"{tag} K2a triples {W} lanes x {cols} columns x {L} lines: "
+          f"equal (max abs err {err_a}); kernel {a_ms:.3f} ms ({a_runs}), "
+          f"plain {a_plain_ms:.3f} ms (median of 3, in turns); "
+          f"{live} live steps, sum of symbol indices {sum_x}; bound "
+          f"{bounds['coder_triples'][0]:.4f} ms ({bounds['coder_triples'][1]},"
+          f" {bounds['coder_triples'][2]}; SASS instructions by pipe "
+          f"{json.dumps(bounds['coder_triples'][3])})", flush=True)
+    print(f"{tag} K2b chain {W} lanes x {cols * L} steps"
+          f"{' after the cluster-id segment' if seg is not None else ''}: "
+          f"equal (max abs err {err_b}), {int(fk.sum())} flagged lanes; "
+          f"kernel {b_ms:.3f} ms (median of 5, {b_runs}), plain "
+          f"{b_plain_ms:.1f} ms (one run); {cycles:.1f} cycles a step at "
+          f"{gpu.hz / 1e6:.0f} MHz; bound {bounds['coder_chain'][0]:.4f} ms "
+          f"({bounds['coder_chain'][1]}, {bounds['coder_chain'][2]}; SASS "
+          f"instructions by pipe {json.dumps(bounds['coder_chain'][3])}); "
+          f"K2a + K2b {a_ms + b_ms:.3f} ms", flush=True)
+    # each kernel at each lanes-a-warp setting: equal output, median of 3
+    sweep = {}
+    for lpw in LANES_SWEEP[:-1]:
+        t2 = cd.triples(plan_t, mid, qs, lane_counts, base, 0, cols, lpw)[0]
+        require(torch.equal(t2, trip), f"{tag} K2a at {lpw} lanes a warp "
+                "equals the default")
+        del t2
+        a_lpw = statistics.median(event_ms(lambda: cd.triples(
+            plan_t, mid, qs, lane_counts, base, 0, cols, lpw), torch)
+            for _ in range(3))
+        runs = []
+        for _ in range(3):
+            r = start(cd.chain)
+            torch.cuda.synchronize()
+            runs.append(event_ms(
+                lambda: cd.chain(trip, cols, lane_counts, r, lpw), torch))
+        require(torch.equal(r[1], got[1]) and torch.equal(r[2], got[2]),
+                f"{tag} K2b at {lpw} lanes a warp equals the default")
+        sweep[lpw] = (a_lpw, statistics.median(runs))
+    print(f"{tag} K2a, K2b by lanes a warp (defaults {cd.LANES_PER_WARP}, "
+          f"{cd.CHAIN_LANES_PER_WARP}; median of 3, equal output): "
+          + ", ".join(f"{k}: {a:.3f}, {b:.3f} ms"
+                      for k, (a, b) in sweep.items()), flush=True)
+    return {"err": max(err_a, err_b), "a_ms": a_ms, "a_plain_ms": a_plain_ms,
+            "b_ms": b_ms, "b_plain_ms": b_plain_ms, "bounds": bounds,
+            "cycles": cycles}
+
+
+def proc_status_kb(field: str) -> int:
+    """A field of /proc/self/status in kB (VmRSS, VmHWM), 0 if absent."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1])
+    return 0
+
+
+def reset_peak_rss() -> bool:
+    """Resets this process's VmHWM to its RSS (Linux clear_refs 5)."""
+    try:
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+        return True
+    except OSError:
+        return False
 
 
 def require(cond: bool, what: str) -> None:
@@ -160,7 +392,7 @@ def max_err(got, want) -> int:
                for a, b in zip(got, want))
 
 
-def clustered_phases(torch, np, data, dist, card, rate) -> dict:
+def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
     """Phases 6-10: the -c 3 -T 4 path. Returns the kernels' errors and
     times, the encodes' medians and the encodes' kernel launches."""
     from qvz_tpu_torch import _build
@@ -316,35 +548,9 @@ def clustered_phases(torch, np, data, dist, card, rate) -> dict:
         ctrip[w, : hi - lo] = rt.replay_model(
             plan.cluster_init_counts, plan.cluster_init_total,
             clusters[lo:hi])
-    k = 2
-    plan_k = dict(plan_t, columns=k)
-    mid_k, qs_k = mid[:k].contiguous(), qs[:k].contiguous()
-    got = cd.fetch_lanes(*cd.code_lanes(plan_k, mid_k, qs_k, lane_counts,
-                                        base, ctrip))
-    t = time.perf_counter()
-    want = cd.fetch_lanes(*cd.encode_lanes_reference(
-        plan_k, mid_k, qs_k, lane_counts, base, ctrip))
-    seg_plain = (time.perf_counter() - t) * 1e3
-    pk, fk = cd.payloads_from_raw(*got)
-    pp, fp = cd.payloads_from_raw(*want)
-    ok = ~fk
-    err = max([int(np.abs(got[0][w, : got[1][w]].astype(np.int64)
-                          - want[0][w, : want[1][w]].astype(np.int64)).max())
-               for w in np.flatnonzero(ok) if got[1][w]] + [0])
-    err = max(err, int(np.abs(got[2][:5, ok] - want[2][:5, ok]).max()))
-    require(np.array_equal(fk, fp) and np.array_equal(got[1], want[1])
-            and err == 0 and pk == pp,
-            "K2 with the cluster-id segment equals its plain version")
-    res["k2_err"] = err
-    seg_ms = statistics.median(
-        event_ms(lambda: cd.code_lanes(plan_t, mid, qs, lane_counts, base,
-                                       ctrip), torch) for _ in range(3))
-    print(f"[9] K2 with the cluster-id segment, {len(lane_counts)} lanes: "
-          f"segment + {k} columns equal to the plain version (max abs err "
-          f"{err}, {int(fk.sum())} flagged lanes; plain {seg_plain:.1f} "
-          f"ms); kernel over the segment and all {cols} columns "
-          f"{seg_ms:.3f} ms (median of 3)", flush=True)
-    del mid, qs, got, want, data_t
+    res["k2"] = coder_phase(torch, np, plan_t, mid, qs, lane_counts, base,
+                            ctrip, gpu, "[9]")
+    del mid, qs, data_t
 
     # -- 10. the end-to-end encode, -c 3 -T 4 -------------------------------
     mb = n * (cols + 1) / 1e6
@@ -394,7 +600,8 @@ def clustered_phases(torch, np, data, dist, card, rate) -> dict:
               f"{json.dumps(phases)}", flush=True)
     res["launches"] = dict(_build.LAUNCHES)
     print(f"[10] kernel launches by the -c 3 encodes: {res['launches']}")
-    for name in ("hist", "kmeans", "quantize", "coder"):
+    for name in ("hist", "kmeans", "quantize", "coder_triples",
+                 "coder_chain"):
         require(res["launches"].get(name, 0) >= 1,
                 f"the -c 3 encode launched {name}")
     return res
@@ -484,7 +691,20 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
                 f"{name}: the host decoder gives the encode's -u "
                 "reconstruction")
         st = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev_before = torch.cuda.memory_allocated()
+        rss_before = proc_status_kb("VmRSS")
+        hwm_reset = reset_peak_rss()
         got = port.decode(comp, device="cuda", stats=st)
+        mem = (f"device memory {dev_before / 2**20:.1f} MiB allocated before"
+               f", peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+               f"(torch.cuda.max_memory_allocated); host RSS "
+               f"{rss_before / 1024:.1f} MiB before, "
+               + (f"peak {proc_status_kb('VmHWM') / 1024:.1f} MiB (VmHWM "
+                  "reset before the decode)" if hwm_reset else
+                  f"{proc_status_kb('VmRSS') / 1024:.1f} MiB after (the "
+                  "peak could not be reset)"))
         require(np.array_equal(got, want),
                 f"{name}: decode(device='cuda') byte-equal to the host "
                 "decoder")
@@ -504,8 +724,9 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
               f"-u reconstruction, {st['lanes']} lanes, 0 flagged; median "
               f"of 3 {secs:.4f} s = {mb / secs:.1f} MB/s (runs "
               f"{[round(r, 4) for r in runs]}); host decoder {host_secs:.4f}"
-              f" s = {mb / host_secs:.1f} MB/s; phases "
-              f"{json.dumps(phases)}", flush=True)
+              f" s = {mb / host_secs:.1f} MB/s; {st['waves']} wave(s); "
+              f"phases {json.dumps(phases)}; first decode: {mem}",
+              flush=True)
     res["launches"] = dict(_build.LAUNCHES)
     print(f"[12] kernel launches by the decodes: {res['launches']}")
     require(res["launches"].get("decoder", 0) >= 1,
@@ -557,6 +778,75 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
               flush=True)
         del lanes, first
     return res
+
+
+def refused_phase(torch, np, dist) -> dict:
+    """Phase 16: a plan whose layout K5 refuses. 200,000 x 20 of the
+    phase-2 generator at -c REFUSED_K (K5 takes the plan at one cluster
+    fewer): the encode on the card, K2a taking the plan or its lanes going
+    to the host coder, counted; decode(device="cuda") sends every lane to
+    the host decoder before any launch, counted, byte-equal."""
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.constants import MODE_RATIO
+    from qvz_tpu_torch.native import runtime as rt
+    from qvz_tpu_torch.ops import coder_device as cd
+    from qvz_tpu_torch.ops import decoder_device as dd
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline import decode as pdec
+    from qvz_tpu_torch.pipeline import encode as port
+    from qvz_tpu_torch.pipeline import host
+
+    n, cols, K = 200_000, 20, REFUSED_K
+    data = make_input(n, cols, 42)
+    fits = {}
+    for k in (K - 1, K):
+        cl, _, _ = rt.kmeans_host(data, k, 4.0)
+        c0, cond = rt.stats_host(data, cl, k)
+        tables = rt.Design(c0, cond, MODE_RATIO, 0.5, dist).tables()
+        dplan_t = dd.decode_plan_to_torch(
+            dd.DecodePlan(cd.LanePlan(tables, None), tables), "cuda")
+        fits[k] = (dd.launch_refusal(dplan_t, 260, "cuda"), dplan_t["S"],
+                   dplan_t["models_max"])
+    require(fits[K - 1][0] is None and fits[K][0] is not None,
+            f"K5 takes the plan at -c {K - 1} and refuses it at -c {K}")
+    _build.LAUNCHES.clear()
+    t = time.perf_counter()
+    out = port.encode(data, dist, n_clusters=K, well_state=WellState.debug(),
+                      shards=0, device="cuda")
+    enc_secs = time.perf_counter() - t
+    st = {}
+    t = time.perf_counter()
+    got = pdec.decode(out.compressed, device="cuda", stats=st)
+    dec_secs = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    ref = host.encode(data, dist, n_clusters=K, well_state=WellState.debug(),
+                      shards=port.device_lane_count(n))
+    require(out.compressed == ref.compressed,
+            f"-c {K}: container byte-equal to the port's host engine")
+    require(np.array_equal(got, host.decode(out.compressed)),
+            f"-c {K}: decode(device='cuda') byte-equal to the host decoder")
+    require(st["fallback_lanes"] == st["lanes"] and "fallback_reason" in st,
+            f"-c {K}: every lane refused by K5, counted, with the reason")
+    refused = out.stats.coder_fallback_reason is not None
+    require(launches.get("decoder", 0) == 0
+            and (launches.get("coder_triples", 0) == 0) == refused
+            and all(launches.get(k, 0) >= 1
+                    for k in ("hist", "kmeans", "quantize")),
+            f"-c {K}: the kernels launched match the plan's fit")
+    print(f"[16] 200000 x 20 at -c {K} (S = {fits[K][1]}, "
+          f"{fits[K][2]} models a column; at -c {K - 1}: S = {fits[K - 1][1]},"
+          f" {fits[K - 1][2]} models, which K5 takes): encode on the card "
+          f"{enc_secs:.3f} s, byte-equal to the host engine; K2a "
+          + (f"refuses ({out.stats.coder_fallback_reason}): "
+             f"{out.stats.coder_fallback_lanes} lanes coded on the host"
+             if refused else
+             f"takes the plan, {out.stats.coder_fallback_lanes} lanes on the "
+             "host")
+          + f"; decode(device='cuda') {dec_secs:.3f} s, byte-equal to the "
+          f"host decoder, {st['fallback_lanes']} of {st['lanes']} lanes "
+          f"refused ({st['fallback_reason']}); launches {launches}",
+          flush=True)
+    return launches
 
 
 def microbench_phase() -> list:
@@ -697,59 +987,15 @@ def main() -> int:
     mid, qs, _ = got
     del want
 
-    # -- 4. K2 against its plain version -------------------------------------
+    # -- 4. K2a and K2b against their plain versions -------------------------
     w_n = int(counts[0])
     md0, qs0, _, _ = rt.quantize_colmajor(
         tables, np.ascontiguousarray(data[:w_n].T), None, states[0])
     bank = rt.bank_from_stream(tables, md0, qs0, None, w_n)
     plan_t = cd.plan_to_torch(cd.LanePlan(tables, bank), dev)
-    lane_counts, base = counts[1:], int(offs[1])
-    # warm-up: the kernel once, the plain version on two columns
-    cd.code_lanes(plan_t, mid, qs, lane_counts, base)
-    cd.encode_lanes_reference(plan_t, mid[:2].contiguous(),
-                              qs[:2].contiguous(), lane_counts, base)
-    torch.cuda.synchronize()
-    k2_ms = []
-    raw = {}
-
-    def run_kernel():
-        raw["kernel"] = cd.code_lanes(plan_t, mid, qs, lane_counts, base)
-
-    def run_plain():
-        raw["plain"] = cd.encode_lanes_reference(plan_t, mid, qs,
-                                                 lane_counts, base)
-
-    k2_ms.append(event_ms(run_kernel, torch))
-    k2_plain = event_ms(run_plain, torch)
-    k2_ms.append(event_ms(run_kernel, torch))
-    k2 = statistics.median(k2_ms)
-    wk, nk, ck = cd.fetch_lanes(*raw["kernel"])
-    wp, np_, cp = cd.fetch_lanes(*raw["plain"])
-    fk, fp = ck[5] != 0, cp[5] != 0
-    require(np.array_equal(fk, fp), "K2 flags equal the plain version's")
-    ok = ~fk
-    require(np.array_equal(nk[ok], np_[ok]), "K2 word counts equal")
-    k2_err = 0
-    for w in np.flatnonzero(ok):
-        a = wk[w, : nk[w]].astype(np.int64)
-        b = wp[w, : np_[w]].astype(np.int64)
-        if len(a):
-            k2_err = max(k2_err, int(np.abs(a - b).max()))
-    k2_err = max(k2_err, int(np.abs(ck[:5, ok] - cp[:5, ok]).max()))
-    require(k2_err == 0, "K2 words and carry equal the plain version's")
-    pk, _ = cd.payloads_from_raw(wk, nk, ck)
-    pp, _ = cd.payloads_from_raw(wp, np_, cp)
-    require(pk == pp, "K2 payload bytes equal the plain version's")
-    steps = cols * max(lane_counts)
-    k2_bound = bound(8 * cols * sum(lane_counts)
-                     + sum(len(q) for q in pk if q is not None),
-                     STEP_OPS * cols * sum(lane_counts), rate)
-    print(f"[4] K2 lane coder {len(lane_counts)} lanes x {steps} steps: "
-          f"equal (max abs err {k2_err}), {int(fk.sum())} flagged lanes; "
-          f"kernel {k2:.3f} ms ({k2_ms}), plain {k2_plain:.3f} ms "
-          f"(kernel, plain, kernel); bound {k2_bound[0]:.4f} ms "
-          f"({k2_bound[1]})", flush=True)
-    del raw, mid, qs, got, data_t, draws_t
+    k2 = coder_phase(torch, np, plan_t, mid, qs, counts[1:], int(offs[1]),
+                     None, gpu, "[4]")
+    del mid, qs, got, data_t, draws_t
 
     # -- 5. the end-to-end encode -----------------------------------------
     mb = n * (cols + 1) / 1e6
@@ -795,11 +1041,11 @@ def main() -> int:
               f"{json.dumps(phases)}", flush=True)
     launches = dict(_build.LAUNCHES)
     print(f"[5] kernel launches by the encodes: {launches}")
-    for name in ("hist", "quantize", "coder"):
+    for name in ("hist", "quantize", "coder_triples", "coder_chain"):
         require(launches.get(name, 0) >= 1, f"the encode launched {name}")
 
     # -- 6.-10. the clustered path (-c 3 -T 4) -----------------------------
-    clus = clustered_phases(torch, np, data, dist, card, rate)
+    clus = clustered_phases(torch, np, data, dist, gpu, rate)
     for name, k in clus["launches"].items():
         launches[name] = launches.get(name, 0) + k
     containers.update(clus.pop("containers"))
@@ -810,6 +1056,9 @@ def main() -> int:
 
     # -- 15. the integer-issue microbenchmark --------------------------------
     mb_kernels = microbench_phase()
+
+    # -- 16. a plan whose layout K5 refuses ------------------------------------
+    refused_phase(torch, np, dist)
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -820,13 +1069,15 @@ def main() -> int:
          "max_abs_err": max(k1_err, clus["k1_err"]),
          "ms": k1, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
-        {"name": "coder", "route": "cuda",
-         "source": "qvz_tpu_torch/csrc/coder.cu",
-         "replaces": "qvz_tpu/ops/coder_pallas.py:159",
-         "launches": launches["coder"],
-         "max_abs_err": max(k2_err, clus["k2_err"]),
-         "ms": k2, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+        *({"name": name, "route": "cuda",
+           "source": "qvz_tpu_torch/csrc/coder.cu",
+           "replaces": "qvz_tpu/ops/coder_pallas.py:159",
+           "launches": launches[name],
+           "max_abs_err": max(k2["err"], clus["k2"]["err"]),
+           "ms": k2[f"{p}_ms"], "plain_ms": k2[f"{p}_plain_ms"],
+           "bound_ms": k2["bounds"][name][0],
+           "bound_by": k2["bounds"][name][1], "library_ms": None}
+          for name, p in (("coder_triples", "a"), ("coder_chain", "b"))),
         {"name": "hist", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/hist.cu",
          "replaces": "qvz_tpu/ops/pallas_kernels.py:168",

@@ -32,8 +32,9 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Kernel launches per wrapper ("quantize", "coder", "hist", "kmeans",
-# "decoder", and the microbenchmark's "issue", "mix" and "selmix"): each
+# Kernel launches per wrapper ("quantize", "coder_triples" and
+# "coder_chain" (K2a, K2b), "hist", "kmeans", "decoder", and the
+# microbenchmark's "issue", "mix" and "selmix"): each
 # wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -113,9 +114,15 @@ def load() -> ctypes.CDLL:
     lib.qvz_quantize.argtypes = [p, p, p, i64, i32, p, p, p, p, p,
                                  p, p, p, p]
     lib.qvz_quantize.restype = ctypes.c_int
-    lib.qvz_code_lanes.argtypes = [p, p, i64, i32, p, i32, p, i64, p, p,
-                                   p, p, i32, p, p, i64, p, p, p]
-    lib.qvz_code_lanes.restype = ctypes.c_int
+    lib.qvz_coder_smem_limits.argtypes = [p, p]
+    lib.qvz_coder_smem_limits.restype = ctypes.c_int
+    lib.qvz_coder_triples.argtypes = [p, p, i64, p, i32, i32, i32, i32, p,
+                                      p, p, p, p, p, i32, p, p, i32, i32,
+                                      i32, i32, i32, i64, p]
+    lib.qvz_coder_triples.restype = ctypes.c_int
+    lib.qvz_coder_chain.argtypes = [p, i32, i32, p, i32, p, i64, p, p,
+                                    i32, p]
+    lib.qvz_coder_chain.restype = ctypes.c_int
     lib.qvz_hist.argtypes = [p, p, i64, i32, i32, p, p, p]
     lib.qvz_hist.restype = ctypes.c_int
     lib.qvz_kmeans_step.argtypes = [p, i64, i32, p, i32, i32, p, p, p, p]

@@ -13,8 +13,8 @@ after the device statistics.
 -x decodes a column-major QVZ2 container's lanes on --device (the lane
 decoder K5, as ``python -m qvz_tpu -x --jax`` decodes them on the TPU);
 v1 and other containers without lanes decode on the port's host decoder.
---hosts, --streaming and --reuse-books are not ported yet and stop with
-an error that names the ROADMAP item.
+--hosts, --streaming, --reuse-books and --profile are not ported yet and
+stop with an error that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ _NOT_PORTED = {
     "--hosts": "item 9",
     "--streaming": "item 9",
     "--reuse-books": "item 10",
+    "--profile": "item 10",
 }
 
 

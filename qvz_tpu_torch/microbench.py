@@ -43,6 +43,7 @@ on CUDA tensors, or raise. Nothing runs at import time.
 
 from __future__ import annotations
 
+import heapq
 import json
 import math
 import pathlib
@@ -372,8 +373,25 @@ def run_plain(leg: Leg, reps: int, kw=None, c=None, x=None, tiles=1):
 # "/*0150*/  @!P0 BRA 0x90 ;": address, predicate, opcode, operands
 _INSN = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
+_PRED = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+@!?(U?P\w+)\s")
 # 4-byte words that one thread's LDS or STS moves, by its width
 _WORDS = {"U8": 0.25, "S8": 0.25, "U16": 0.5, "S16": 0.5, "64": 2, "128": 4}
+
+
+def _weights(op: str) -> dict:
+    """One instruction's share of each pipe: roofline's "alu", "fma" and
+    "issue" (every instruction), and the shared-memory words it moves."""
+    base, *mods = op.split(".")
+    return {"issue": 1, "alu": int(base in roofline.ALU_OPS),
+            "fma": int(base in roofline.FMA_OPS),
+            "shared": _WORDS.get(next((m for m in mods if m in _WORDS),
+                                      None), 1)
+            if base in ("LDS", "STS") else 0}
+
+
+def _target(args: str) -> int | None:
+    m = re.findall(r"0x([0-9a-f]+)", args)
+    return int(m[-1], 16) if m else None
 
 
 def _inner_loop(insns):
@@ -381,7 +399,7 @@ def _inner_loop(insns):
     a backward branch's target to the branch), and its instructions by
     pipe (roofline's "alu", "fma", "issue": all) and shared words."""
     loops = []
-    for addr, op, args in insns:
+    for addr, op, args, *_ in insns:
         m = re.search(r"0x([0-9a-f]+)", args)
         if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
             loops.append((int(m.group(1), 16), addr))
@@ -393,30 +411,107 @@ def _inner_loop(insns):
     lo, hi = max(inner, key=lambda s: s[1] - s[0])
     counts = {k: 0 for k in SASS_OPS}
     pipes = {"issue": 0, "alu": 0, "fma": 0, "shared": 0}
-    for addr, op, _ in insns:
+    for addr, op, *_ in insns:
         if lo <= addr <= hi:
-            pipes["issue"] += 1
-            base, *mods = op.split(".")
+            base = op.split(".")[0]
             if base in counts:
                 counts[base] += 1
-            if base in roofline.ALU_OPS:
-                pipes["alu"] += 1
-            elif base in roofline.FMA_OPS:
-                pipes["fma"] += 1
-            elif base in ("LDS", "STS"):
-                pipes["shared"] += _WORDS.get(next(
-                    (m for m in mods if m in _WORDS), None), 1)
+            for k, v in _weights(op).items():
+                pipes[k] += v
     counts["total"] = pipes["issue"]
     return counts, pipes
 
 
-def sass_loops() -> dict:
-    """{variant: inner-loop opcode counts, and "per_elem", the loop's
-    instructions for one element by pipe ("alu", "fma", "issue") and its
-    shared-memory words ("shared"); an element is one thread-rep of the
-    8 chains for the issue kernels, one step for sel_b4} from
-    ``cuobjdump -sass`` of the library, built first if this source hash
-    has none."""
+def loop_spans(insns) -> dict:
+    """{head address: address of the last branch back to it}: the
+    function's loops, a loop being every backward branch to one head."""
+    spans = {}
+    for addr, op, args, *_ in insns:
+        t = _target(args)
+        if op.startswith("BRA") and t is not None and t <= addr:
+            spans[t] = max(spans.get(t, addr), addr)
+    return spans
+
+
+def trip_min(insns, head: int, through: str | None = None) -> dict:
+    """The least that one trip of the loop at `head` can take, by pipe
+    (``_weights``): the shortest path over the loop's instructions from
+    the head to a branch back to it, along fall-throughs and branches
+    inside the loop. The instructions of loops nested in it count nothing
+    (their trips count apart). With `through`, an opcode prefix, the path
+    passes an instruction of that opcode (a trip that does some work). A
+    lower bound on any trip, whatever the data: a path skipped by a
+    branch is never counted."""
+    hi = loop_spans(insns)[head]
+    span = [i for i in insns if head <= i[0] <= hi]
+    at = {ins[0]: k for k, ins in enumerate(span)}
+    nested = [(h, e) for h, e in loop_spans(insns).items()
+              if head < h and e <= hi]
+    succ, ends = [], set()
+    for k, (addr, op, args, *rest) in enumerate(span):
+        pred = bool(rest and rest[0])
+        base = op.split(".")[0]
+        nxt = [k + 1] if k + 1 < len(span) else []
+        if base == "BRA":
+            t = _target(args)
+            if t == head:
+                ends.add(k)
+                out = []
+            else:
+                out = [at[t]] if t in at else []
+            out += nxt if pred else []
+        elif base in ("EXIT", "RET", "BRX", "JMX", "JMP"):
+            out = nxt if pred else []
+        else:
+            out = nxt
+        succ.append(out)
+    if not ends:
+        raise RuntimeError(f"the loop at {head:#x} has no branch back")
+    pred_of = [[] for _ in span]
+    for k, out in enumerate(succ):
+        for v in out:
+            pred_of[v].append(k)
+    hits = [k for k, ins in enumerate(span)
+            if through is None or ins[1].startswith(through)]
+    if not hits:
+        raise RuntimeError(f"no {through} in the loop at {head:#x}")
+    res = {}
+    for pipe in ("issue", "alu", "fma", "shared"):
+        w = [0 if any(h <= ins[0] <= e for h, e in nested)
+             else _weights(ins[1])[pipe] for ins in span]
+        fwd = _dijkstra(w, succ, [0])
+        back = _dijkstra(w, pred_of, sorted(ends))
+        res[pipe] = min(fwd[k] + back[k] - w[k] for k in hits)
+        if res[pipe] == float("inf"):
+            raise RuntimeError(f"no trip of the loop at {head:#x} passes "
+                               f"{through}")
+    return res
+
+
+def _dijkstra(w, succ, sources) -> list:
+    """Least node-weighted path lengths from any of `sources`, sources'
+    weights included."""
+    dist = [float("inf")] * len(w)
+    heap = []
+    for s in sources:
+        dist[s] = w[s]
+        heap.append((w[s], s))
+    heapq.heapify(heap)
+    while heap:
+        d, k = heapq.heappop(heap)
+        if d > dist[k]:
+            continue
+        for v in succ[k]:
+            if d + w[v] < dist[v]:
+                dist[v] = d + w[v]
+                heapq.heappush(heap, (dist[v], v))
+    return dist
+
+
+def sass_functions() -> dict:
+    """{function name: [(address, opcode, operands, predicated)]} from
+    ``cuobjdump -sass`` of the kernel library, built first if this source
+    hash has none (an @PT predicate counts as none)."""
     _build.load()
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(_build.lib_path())],
@@ -431,7 +526,20 @@ def sass_loops() -> dict:
             continue
         m = _INSN.match(line)
         if m and name is not None:
-            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+            p = _PRED.match(line)
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3),
+                                bool(p) and p.group(1) != "PT"))
+    return funcs
+
+
+def sass_loops() -> dict:
+    """{variant: inner-loop opcode counts, and "per_elem", the loop's
+    instructions for one element by pipe ("alu", "fma", "issue") and its
+    shared-memory words ("shared"); an element is one thread-rep of the
+    8 chains for the issue kernels, one step for sel_b4} from
+    ``cuobjdump -sass`` of the library, built first if this source hash
+    has none."""
+    funcs = sass_functions()
     out = {}
     for variant, sym in SYMBOLS.items():
         if sym not in funcs:

@@ -30,8 +30,9 @@ rows go to ``out[line, :cols] = qv + sym_add``, and a newline to
 one row of (l, u, t, consumed bits, flags).
 
 ``DecodePlan`` is copied from ``qvz_tpu.ops.decoder_device`` (that module
-imports JAX when it loads), without its Mosaic-packed tables, and adds the
-per-column model records that K5 stages in shared memory.
+imports JAX when it loads), without its Mosaic-packed tables, and takes
+from ``coder_device.LanePlan`` the per-column model records that K5 (and
+K2a) stage in shared memory.
 
 K5 decodes LANES_PER_WARP lanes in each warp (``lanes_per_warp``; up to 32
 lanes a block): fewer lanes a warp serialise fewer divergent steps and let
@@ -51,7 +52,7 @@ from qvz_tpu_torch.ops.coder_device import (ARITH_M, ARITH_R, FULL,
                                             MSB_BIT, MSB_CLEAR, MSB_SHIFT,
                                             SMSB_SHIFT, STEP, U32,
                                             _bit_length, _lane_offsets,
-                                            plan_to_torch)
+                                            _round8, plan_to_torch)
 
 FLAG_BAD, FLAG_RESCALE, FLAG_OVERRUN = 1, 2, 4
 OVERRUN_BYTES = 64       # the host BitReader's margin past the payload
@@ -61,7 +62,6 @@ A = 72                   # no model has more symbols than the alphabet
 LANES_PER_WARP = 2
 _LANES_PER_BLOCK = 32
 _CHUNK_CAP = 2048        # K5's steps a chunk, at most
-_TOTAL_BITS = 20         # a model record packs card << 20 | initial total
 
 
 class DecodePlan:
@@ -99,23 +99,11 @@ class DecodePlan:
         ).astype(np.int32)
         self.qrtab = np.asarray(tables.qratio).astype(np.int32)
         self.symtab = symtab
-
-        mloc = np.zeros(len(plan.cards), dtype=np.int32)
-        recs = []
-        for ms in plan.col_models:
-            mloc[ms] = np.arange(len(ms))
-            recs.append(np.stack([plan.slot_base[ms].astype(np.int64),
-                                  (plan.cards[ms].astype(np.int64)
-                                   << _TOTAL_BITS)
-                                  | plan.totals[ms].astype(np.int64)], 1))
-        if int(plan.totals.max(initial=0)) >> _TOTAL_BITS:
-            raise ValueError("an initial model total passes 2^20")
-        self.mloc = mloc
-        self.mtab = (np.concatenate(recs) if recs
-                     else np.zeros((0, 2), np.int64)).astype(np.int32)
-        self.col_model_off = np.concatenate(
-            [[0], np.cumsum([len(ms) for ms in plan.col_models])]
-        ).astype(np.int32)
+        # the lane coder's per-column model records (a total at 2^20 or
+        # more, clamped there, raises the rescale flag at its first use)
+        self.mloc = plan.mloc
+        self.mtab = plan.mtab
+        self.col_model_off = plan.col_model_off
         self.plan = plan
         self.columns = cols
         self.S = S
@@ -126,11 +114,10 @@ def decode_plan_to_torch(dplan: DecodePlan, device) -> dict:
     """The plan's tables as int32 tensors on `device` (plan_to_torch's
     and ptab, qrtab, symtab)."""
     d = plan_to_torch(dplan.plan, device)
-    for k in ("ptab", "qrtab", "symtab", "mloc", "mtab", "col_model_off"):
+    for k in ("ptab", "qrtab", "symtab"):
         d[k] = torch.from_numpy(np.array(getattr(dplan, k), dtype=np.int32,
                                          copy=True)).to(device)
     d["n_clusters"] = int(dplan.n_clusters)
-    d["models_max"] = int(np.diff(dplan.col_model_off).max(initial=0))
     return d
 
 
@@ -316,10 +303,6 @@ def _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
         raise ValueError("inputs and plan must share one device")
 
 
-def _round8(x: int) -> int:
-    return -(-x // 8) * 8
-
-
 def launch_shape(S: int, models_max: int, lmax: int, ptab_w: int,
                  lanes_per_warp: int, smem_limit: int) -> dict:
     """K5's block shape and dynamic shared memory for a plan of S slots
@@ -355,6 +338,27 @@ def launch_shape(S: int, models_max: int, lmax: int, ptab_w: int,
                              f"{smem_limit} B")
     return {"lpw": min(lanes_per_warp, lpb), "lpb": lpb, "lt": lt,
             "s_pad": s_pad, "m_pad": m_pad, "smem": size(lpb, lt)}
+
+
+def _card_shape(lib, dplan_t: dict, lmax: int, lanes_per_warp: int) -> dict:
+    return launch_shape(dplan_t["S"], dplan_t["models_max"], lmax,
+                        dplan_t["ptab"].shape[1], lanes_per_warp,
+                        lib.qvz_decoder_smem_limit() - 1024)
+
+
+def launch_refusal(dplan_t: dict, lmax: int, device,
+                   lanes_per_warp: int = LANES_PER_WARP) -> str | None:
+    """Why K5 cannot take lanes of at most lmax lines of this plan on
+    `device`, or None: the plain version takes any plan; on a CUDA device
+    ``launch_shape`` must fit the card's shared memory. The caller
+    decodes refused lanes on the host."""
+    if torch.device(device).type != "cuda":
+        return None
+    try:
+        _card_shape(_build.load(), dplan_t, lmax, lanes_per_warp)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
@@ -393,10 +397,8 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
     if flat.data_ptr() % 8 or flat.numel() < padded:
         flat = torch.zeros(padded, dtype=torch.uint8, device=dev)
         flat[: pays.flat.numel()] = pays.flat
-    shape = launch_shape(S, dplan_t["models_max"],
-                         int(max(lane_counts, default=0)),
-                         dplan_t["ptab"].shape[1], lanes_per_warp,
-                         lib.qvz_decoder_smem_limit() - 1024)
+    shape = _card_shape(lib, dplan_t, int(max(lane_counts, default=0)),
+                        lanes_per_warp)
     offs = _lane_offsets(lane_counts, base, dev)
     out_t = torch.empty((max(cols_run, 1), n), dtype=torch.uint8,
                         device=dev)

@@ -15,9 +15,15 @@ in seconds, in ``stats["phase_seconds"]`` when the caller passes a dict:
   d2h       the lanes' text rows and final states to the host
   redecode  flagged lanes decoded again on the host
 
-K5 writes each lane's text rows, symbols + 33 and the newline, straight
-into a device buffer, so the rows need no assembly on the host.
-``stats`` also gets ``lanes`` and ``fallback_lanes`` (flagged lanes).
+The lanes decode in waves (``_waves``): runs of shards whose draws and
+text fit WAVE_BYTES, one K5 call a wave, so host and device memory stay
+bounded for any file; each phase's seconds add up over the waves. K5
+writes each wave's text rows, symbols + 33 and the newline, straight into
+a device buffer, so the rows need no assembly on the host. ``stats`` also
+gets ``lanes``, ``waves`` and ``fallback_lanes``: the lanes decoded again
+on the host, flagged by K5 or refused by it before the launch where the
+plan's layout does not fit the card (``decoder_device.launch_refusal``),
+with the reason under ``fallback_reason``.
 
 v1 containers, row-major QVZ2 and single-shard QVZ2 have no lanes: they
 go to the port's host decoder (``pipeline/host.py``), as ``qvz_tpu``
@@ -43,6 +49,10 @@ from qvz_tpu_torch.pipeline import host
 from qvz_tpu_torch.pipeline.host import (_malformed_raises_valueerror,
                                          _parsing, _sane_output_size,
                                          _shard_draws)
+
+# Host and device bytes of draws and text rows that one wave of lanes
+# holds; at 1M x 100 (201 MB) the whole file is one wave.
+WAVE_BYTES = 1 << 30
 
 
 class Lanes(NamedTuple):
@@ -103,7 +113,13 @@ def prepare_lanes(compressed, device: str | torch.device = "cuda") -> Lanes:
     if not _has_lanes(head):
         raise ValueError("the container has no lanes")
     out = np.empty((head.lines, head.columns + 1), dtype=np.uint8)
-    return _prepare(compressed, head, tables, out, resolve(device), {})
+    warm = _Warmup(compressed, head, tables, out)
+    try:
+        return _prepare(compressed, head, tables, out, resolve(device), {},
+                        range(1 if head.priming else 0, len(head.shards)),
+                        warm)
+    finally:
+        warm.join()
 
 
 def _payload(compressed, head, i) -> bytes:
@@ -123,57 +139,87 @@ def _workers() -> int:
     return min(8, os.cpu_count() or 1)
 
 
-def _prepare(compressed, head, tables, out, dev, ph) -> Lanes:
-    """Everything before K5; decodes the warmup shard into `out`."""
+def _add(ph: dict, phase: str, secs: float) -> None:
+    ph[phase] = ph.get(phase, 0.0) + secs
+
+
+def _waves(head) -> list[range]:
+    """The lanes' shards in runs, each run's draws and text (lines x
+    (2 x cols + 1) bytes) within WAVE_BYTES, at least one shard a run."""
+    per_line = 2 * head.columns + 1
+    waves, start, size = [], 1 if head.priming else 0, 0
+    for i in range(start, len(head.shards)):
+        b = head.shards[i].lines * per_line
+        if i > start and size + b > WAVE_BYTES:
+            waves.append(range(start, i))
+            start, size = i, 0
+        size += b
+    waves.append(range(start, len(head.shards)))
+    return waves
+
+
+class _Warmup:
+    """The warmup shard's host decode into `out`, in a thread started at
+    once (primed containers only): it gives the lanes' bank while the
+    first wave's checksums, draws and upload go ahead."""
+
+    def __init__(self, compressed, head, tables, out):
+        self._res: dict = {}
+        self._thread = None
+        if head.priming:
+            s0 = head.shards[0]
+
+            def run():
+                try:
+                    _, self._res["bank"] = rt.decode_colmajor(
+                        tables, _payload(compressed, head, 0), s0.lines,
+                        _well(s0), out=out[: s0.lines].reshape(-1),
+                        want_bank=True)
+                except BaseException as e:  # raised again by bank()
+                    self._res["err"] = e
+
+            self._thread = threading.Thread(target=run)
+            self._thread.start()
+
+    def join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+
+    def bank(self) -> np.ndarray | None:
+        """The lanes' bank (None unprimed), after the wait for it."""
+        self.join()
+        if "err" in self._res:
+            raise self._res["err"]
+        return self._res.get("bank")
+
+
+def _prepare(compressed, head, tables, out, dev, ph, wave: range,
+             warm: _Warmup) -> Lanes:
+    """Everything before K5 for the lanes of the shards in `wave`; the
+    phases' seconds add up in `ph`."""
     t0 = time.perf_counter()
     cols = head.columns
-    shards = head.shards
-    first = 1 if head.priming else 0
+    shards = [head.shards[i] for i in wave]
+    with ThreadPoolExecutor(max_workers=_workers()) as ex:
+        pays = list(ex.map(lambda i: _payload(compressed, head, i), wave))
+    t1 = time.perf_counter()
+    _add(ph, "parse", t1 - t0)
 
-    # the warmup shard's host decode gives the lanes' bank; it runs in a
-    # thread while the lanes' checksums, draws and upload go ahead
-    warm: dict = {}
-    thread = None
-    if first:
-        def _warmup():
-            try:
-                s0 = shards[0]
-                _, warm["bank"] = rt.decode_colmajor(
-                    tables, _payload(compressed, head, 0), s0.lines,
-                    _well(s0), out=out[: s0.lines].reshape(-1),
-                    want_bank=True)
-            except BaseException as e:  # raised again on the caller's thread
-                warm["err"] = e
+    lane_counts = [s.lines for s in shards]
+    states = np.stack([_well(s) for s in shards])
+    draws = _shard_draws(states, lane_counts, cols)
+    t2 = time.perf_counter()
+    _add(ph, "draws", t2 - t1)
 
-        thread = threading.Thread(target=_warmup)
-        thread.start()
-    try:
-        with ThreadPoolExecutor(max_workers=_workers()) as ex:
-            pays = list(ex.map(lambda i: _payload(compressed, head, i),
-                               range(first, len(shards))))
-        t1 = time.perf_counter()
-        ph["parse"] = t1 - t0
-
-        lane_counts = [s.lines for s in shards[first:]]
-        states = np.stack([_well(s) for s in shards[first:]])
-        draws = _shard_draws(states, lane_counts, cols)
-        t2 = time.perf_counter()
-        ph["draws"] = t2 - t1
-
-        draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
-        del draws
-        lane_pays = decoder_device.pack_payloads(pays, dev)
-        synchronize(dev)
-        t3 = time.perf_counter()
-        ph["h2d"] = t3 - t2
-    finally:
-        if thread is not None:
-            thread.join()
+    draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
+    del draws
+    lane_pays = decoder_device.pack_payloads(pays, dev)
+    synchronize(dev)
+    t3 = time.perf_counter()
+    _add(ph, "h2d", t3 - t2)
+    bank = warm.bank()
     t4 = time.perf_counter()
-    ph["warmup"] = t4 - t3
-    if "err" in warm:
-        raise warm["err"]
-    bank = warm.get("bank")
+    _add(ph, "warmup", t4 - t3)
 
     dplan_t = decoder_device.decode_plan_to_torch(
         decoder_device.DecodePlan(coder_device.LanePlan(tables, bank),
@@ -192,49 +238,68 @@ def _prepare(compressed, head, tables, out, dev, ph) -> Lanes:
                             dtype=np.int64)
     starts = torch.from_numpy(starts).to(dev)
     synchronize(dev)
-    ph["prologue"] = time.perf_counter() - t4
+    _add(ph, "prologue", time.perf_counter() - t4)
     return Lanes(dplan_t, lane_pays, draws_t, cl, lane_counts, starts, bank,
-                 first)
+                 wave.start)
 
 
 def _decode_lanes(compressed, head, tables, out, dev, st) -> None:
     """The device branch: the counterpart of qvz_tpu's
-    _decode_v2_device."""
-    ph = st.setdefault("phase_seconds", {})
-    lanes = _prepare(compressed, head, tables, out, dev, ph)
-    t0 = time.perf_counter()
-    first = lanes.first
+    _decode_v2_device, one K5 call a wave of lanes (``_waves``)."""
+    ph = st["phase_seconds"] = {}
     shards = head.shards
     offs = np.concatenate([[0], np.cumsum([s.lines for s in shards])]
                           ).astype(np.int64)
-    rows = torch.from_numpy(out[offs[first]:])
-    dst = rows if dev.type == "cpu" else torch.empty(
-        rows.shape, dtype=torch.uint8, device=dev)
-    final = decoder_device.decode_lanes_t(
-        lanes.dplan_t, lanes.pays, lanes.draws_t, lanes.cl,
-        lanes.lane_counts, 0, lanes.starts, dst, sym_add=33)
-    synchronize(dev)
-    t1 = time.perf_counter()
-    ph["decoder"] = t1 - t0
+    waves = _waves(head)
+    host_shards = []                     # flagged or refused lanes' shards
+    warm = _Warmup(compressed, head, tables, out)
+    try:
+        for wave in waves:
+            lanes = _prepare(compressed, head, tables, out, dev, ph, wave,
+                             warm)
+            t0 = time.perf_counter()
+            why = decoder_device.launch_refusal(
+                lanes.dplan_t, max(lanes.lane_counts), dev)
+            if why is not None:
+                st["fallback_reason"] = why
+                host_shards.extend(wave)
+                _add(ph, "decoder", 0.0)
+                _add(ph, "d2h", 0.0)
+                continue
+            rows = torch.from_numpy(out[offs[wave.start]:offs[wave.stop]])
+            dst = rows if dev.type == "cpu" else torch.empty(
+                rows.shape, dtype=torch.uint8, device=dev)
+            final = decoder_device.decode_lanes_t(
+                lanes.dplan_t, lanes.pays, lanes.draws_t, lanes.cl,
+                lanes.lane_counts, 0, lanes.starts, dst, sym_add=33)
+            synchronize(dev)
+            t1 = time.perf_counter()
+            _add(ph, "decoder", t1 - t0)
 
-    if dst is not rows:
-        rows.copy_(dst)
-    flags = final[:, 4].cpu().numpy() != 0
+            if dst is not rows:
+                rows.copy_(dst)
+            flags = final[:, 4].cpu().numpy() != 0
+            host_shards.extend(wave.start + np.flatnonzero(flags))
+            _add(ph, "d2h", time.perf_counter() - t1)
+            del lanes, dst, final
+        bank = warm.bank()
+    finally:
+        warm.join()
+
     t2 = time.perf_counter()
-    ph["d2h"] = t2 - t1
 
-    def redecode(w):
-        i = first + w
+    def redecode(i):
         rt.decode_colmajor(tables, _payload(compressed, head, i),
                            shards[i].lines, _well(shards[i]),
                            out=out[offs[i]:offs[i + 1]].reshape(-1),
-                           init_bank=lanes.bank)
+                           init_bank=bank)
 
     with ThreadPoolExecutor(max_workers=_workers()) as ex:
-        list(ex.map(redecode, np.flatnonzero(flags)))
+        list(ex.map(redecode, host_shards))
     ph["redecode"] = time.perf_counter() - t2
-    st["lanes"] = len(lanes.lane_counts)
-    st["fallback_lanes"] = int(flags.sum())
+    st["lanes"] = len(shards) - (1 if head.priming else 0)
+    st["waves"] = len(waves)
+    st["fallback_lanes"] = len(host_shards)
 
 
 @_malformed_raises_valueerror

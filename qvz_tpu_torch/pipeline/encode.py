@@ -10,9 +10,9 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
   design       codebook design on the host (C++ runtime, exact doubles)
   draws        WELL jump-ahead and dither draws on the host
   quantize     K1 on the device (ops/quantize.py)
-  device_code  the cluster-id triples (host replay), K2 on the device
-               (ops/coder_device.py), the warmup shard coded by a host
-               thread meanwhile, and the payload d2h
+  device_code  the cluster-id triples (host replay), K2a and K2b on the
+               device (ops/coder_device.py), the warmup shard coded by a
+               host thread meanwhile, and the payload d2h
   d2h          the device-to-host copies of payload words and recon
   code         everything after quantize: lane coding, host re-coding of
                flagged lanes, distortion and container assembly
@@ -222,7 +222,7 @@ def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
     try:
         lane_pays, flags = coder_device.encode_lanes_raw(
             plan_t, mid, qs, lane_counts, int(offs[first]), ctrip,
-            timings=tim)
+            stats=tim)
     finally:
         if warmup_thread is not None:
             warmup_thread.join()
@@ -230,6 +230,7 @@ def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
     ph["device_code"] = dv["device_code"] = t1 - t0
     ph["d2h"] = dv["d2h"] = tim["d2h"]
     st.coder_fallback_lanes = int(flags.sum())
+    st.coder_fallback_reason = tim.get("fallback_reason")
 
     for w in np.flatnonzero(flags):
         lo, hi = int(offs[first + w]), int(offs[first + w + 1])

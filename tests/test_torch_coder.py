@@ -313,3 +313,236 @@ def test_lane_coder_kernel_codes_the_cluster_segment():
     got = cd.encode_lanes_raw(cd.plan_to_torch(plan, "cuda"), m.cuda(),
                               q.cuda(), lane_counts, 100, ct)
     _assert_same(want, got)
+
+
+# ---------------------------------------------------------------------------
+# K2's two parts: the triples (K2a) and the chain (K2b), their plain
+# versions, the column chunks and the layout K2a refuses.
+
+
+def _replay_triples(tables, bank, md, qs, lane_counts, base, c0, c1):
+    """The host coder's counting replayed in numpy, lane by lane and column
+    by column from the bank's counts: each step's packed (cum_lo, cum_hi,
+    total), step-major, and the lanes that would rescale (which code
+    nothing more in that column)."""
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    moff = np.asarray(tables.model_off, dtype=np.int64)
+    bank0 = (np.ones(int(moff[-1]), dtype=np.int64) if bank is None
+             else np.asarray(bank[: int(moff[-1])], dtype=np.int64))
+    W, L = len(lane_counts), max(lane_counts)
+    out = np.zeros(((c1 - c0) * L, W), dtype=np.int64)
+    flags = np.zeros(W, dtype=bool)
+    lo = base
+    for w, cnt in enumerate(lane_counts):
+        for c in range(c0, c1):
+            counts = bank0.copy()
+            for j in range(cnt):
+                m, x = int(md[c, lo + j]), int(qs[c, lo + j])
+                if m <= 0 or cards[m] <= 1:
+                    continue
+                seg = counts[moff[m]: moff[m] + cards[m]]
+                total = int(seg.sum())
+                if total + 8 > ARITH_R:
+                    flags[w] = True
+                    break
+                cum_lo = int(seg[:x].sum())
+                cum_hi = cum_lo + int(seg[x])
+                out[(c - c0) * L + j, w] = cum_lo | cum_hi << 20 | total << 40
+                seg[x] += 8
+        lo += cnt
+    return out, flags
+
+
+@pytest.mark.parametrize("case", ["prime", "flagging"])
+@pytest.mark.parametrize("c0,c1", [(0, 6), (2, 5)], ids=["all", "chunk"])
+def test_triples_reference_matches_numpy_replay(case, c0, c1):
+    n, cols = 700, 6
+    tables, md, qs = _streams(n, cols, seed=23)
+    lane_counts = _lanes(n, 0, 150)
+    if case == "prime":
+        bank = rt.bank_from_stream(tables, md[:, :90], qs[:, :90], None, 90)
+    else:
+        bank, _ = _flagging_bank(tables, md, lane_counts, 0)
+    plan_t = cd.plan_to_torch(cd.LanePlan(tables, bank), "cpu")
+    trip, flags = cd.triples_reference(
+        plan_t, torch.from_numpy(md.astype(np.int32)),
+        torch.from_numpy(qs.astype(np.int32)), lane_counts, 0, c0, c1)
+    want, wflags = _replay_triples(tables, bank, md, qs, lane_counts, 0, c0,
+                                   c1)
+    assert np.array_equal(trip.numpy(), want)
+    assert np.array_equal(flags.numpy(), wflags)
+    assert wflags.any() == (case == "flagging" and c0 == 0)
+    assert (want != 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("segment", [False, True], ids=["c1", "segment"])
+def test_chain_reference_matches_pass2(segment):
+    """The chain over given triples against qvz_tpu's XLA interval scan
+    over the same triples (a step that codes nothing as its (0, 1, 1))."""
+    n, cols = 1003, 6
+    if segment:
+        tables, md, qs, clusters, bank = _clustered(n, cols, 3, 17, 0)
+    else:
+        (tables, md, qs), bank = _streams(n, cols, seed=13), None
+    lane_counts = _lanes(n, 0, 228)
+    plan = cd.LanePlan(tables, bank)
+    trip, resc = cd.triples_reference(
+        cd.plan_to_torch(plan, "cpu"), torch.from_numpy(md.astype(np.int32)),
+        torch.from_numpy(qs.astype(np.int32)), lane_counts, 0, 0, cols)
+    assert not resc.any()
+    ncols = cols
+    if segment:
+        seg = cd.segment_triples(_triples(plan, clusters, lane_counts, 0),
+                                 lane_counts, "cpu")
+        trip, ncols = torch.cat([seg, trip]), cols + 1
+    words, n_words, carry = cd.chain_reference(trip, ncols, lane_counts)
+
+    t = trip.numpy()
+    live = (t >> 40) != 0
+    lo = np.where(live, t & 0xFFFFF, 0).astype(np.uint32)
+    hi = np.where(live, (t >> 20) & 0xFFFFF, 1).astype(np.uint32)
+    tot = np.where(live, t >> 40, 1).astype(np.uint32)
+    jcarry, (w0, w1, f0, f1) = jcd._pass2(jnp.asarray(lo), jnp.asarray(hi),
+                                          jnp.asarray(tot))
+    jwords, jcount = jcd._compact(w0, w1, f0, f1, 2 * t.shape[0])
+    jwords, jcount = np.asarray(jwords), np.asarray(jcount)
+    assert np.array_equal(n_words.numpy(), jcount)
+    for w in range(len(lane_counts)):
+        assert np.array_equal(words[w, : n_words[w]].numpy().view(np.uint32),
+                              jwords[: jcount[w], w]), f"lane {w}"
+    for k in range(6):
+        assert np.array_equal(carry[k].numpy(),
+                              np.asarray(jcarry[k]).astype(np.int64)), k
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+@pytest.mark.parametrize("segment", [False, True], ids=["c1", "segment"])
+def test_column_chunks_match_jax(coder, monkeypatch, chunks, segment):
+    """The composition over 1, 2 and 3 chunks of columns: payloads and
+    flags equal qvz_tpu's and the host coder's, and the raw output equal
+    to the one-chunk run."""
+    n, cols, base = 1003, 6, 100
+    if segment:
+        tables, md, qs, clusters, bank = _clustered(n, cols, 3, 29, base)
+    else:
+        tables, md, qs = _streams(n, cols, seed=37)
+        clusters = None
+        bank = rt.bank_from_stream(tables, md[:, :base], qs[:, :base], None,
+                                   base)
+    lane_counts = _lanes(n, base, 228)
+    W, L = len(lane_counts), max(lane_counts)
+    plan = cd.LanePlan(tables, bank)
+    ct = _triples(plan, clusters, lane_counts, base) if segment else None
+    args = (cd.plan_to_torch(plan, "cpu"),
+            torch.from_numpy(md.astype(np.int32)),
+            torch.from_numpy(qs.astype(np.int32)), lane_counts, base, ct)
+    one = cd.code_lanes(*args)
+    monkeypatch.setattr(cd, "TRIPLE_BYTES", 8 * W * L * -(-cols // chunks))
+    assert -(-cols // cd.chunk_columns(cols, W, L)) == chunks
+    raw = cd.code_lanes(*args)
+    for a, b in zip(raw, one):
+        assert torch.equal(a, b)
+    got = cd.encode_lanes_raw(*args)
+    assert not got[1].any()
+    want = jcd.encode_lanes_raw(
+        jcd.LanePlan(tables, bank), jnp.asarray(md.astype(np.int32)),
+        jnp.asarray(qs.astype(np.int32)), lane_counts, base, ct)
+    _assert_same(want, got)
+    lo = base
+    for w, cnt in enumerate(lane_counts):
+        assert got[0][w] == rt.encode_precomputed_colmajor(
+            tables, np.ascontiguousarray(md[:, lo:lo + cnt]),
+            np.ascontiguousarray(qs[:, lo:lo + cnt]),
+            clusters[lo:lo + cnt] if segment else None, cnt,
+            init_bank=bank), f"lane {w}"
+        lo += cnt
+
+
+def test_flags_over_column_chunks_like_jax(coder, monkeypatch):
+    n, cols = 1200, 6
+    tables, md, qs = _streams(n, cols, seed=21)
+    lane_counts = _lanes(n, 0, 100)
+    bank, expect = _flagging_bank(tables, md, lane_counts, 0)
+    monkeypatch.setattr(cd, "TRIPLE_BYTES", 8 * len(lane_counts) * 100 * 2)
+    want = _jax(tables, bank, md, qs, lane_counts, 0)
+    got = _port(tables, bank, md, qs, lane_counts, 0)
+    assert np.array_equal(got[1], expect)
+    _assert_same(want, got)
+
+
+@pytest.mark.parametrize("S,models,lmax,lpw,want", [
+    (1004, 130, 240, 4, (4, 26, 64, 78)),      # -c 1 at 1M x 100
+    (2361, 366, 240, 4, (4, 32, 64, 32)),      # -c 3 at 1M x 100
+    (1004, 130, 24, 32, (28, 28, 24, 84)),     # short lanes, one warp
+    (15000, 7000, 260, 4, (1, 1, 64, 1)),      # one lane a block
+])
+def test_triples_shape_fits(S, models, lmax, lpw, want):
+    shape = cd.triples_shape(S, models, lmax, 232_448, 233_472, lpw)
+    assert (shape["lpw"], shape["lpb"], shape["lt"],
+            shape["lanes_per_sm"]) == want
+    assert shape["smem"] + 384 <= 232_448
+    assert shape["s_pad"] % 8 == 0 and shape["m_pad"] % 8 == 0
+
+
+def test_triples_shape_refuses():
+    with pytest.raises(ValueError, match="shared memory"):
+        cd.triples_shape(17_100, 7_174, 260, 232_448, 233_472)
+    with pytest.raises(ValueError, match="power of two"):
+        cd.triples_shape(1004, 130, 240, 232_448, 233_472, 3)
+    assert cd.triples_refusal({"S": 10**6, "models_max": 10**6}, 240,
+                              "cpu") is None
+
+
+def test_refused_layout_goes_to_the_host_coder(monkeypatch):
+    """Where K2a's layout does not fit, no lane is coded on the device:
+    every lane comes back flagged, is re-coded on the host and counted, and
+    the container is byte-equal to the host engine's and qvz_tpu's."""
+    from qvz_tpu.pipeline import encode as jenc
+    from qvz_tpu_torch.pipeline import encode as penc
+    from qvz_tpu_torch.pipeline import host as phost
+
+    monkeypatch.setattr(cd, "triples_refusal",
+                        lambda plan_t, lmax, device: "no room on the card")
+    n, cols = 900, 7
+    rng = np.random.default_rng(41)
+    data = np.clip(30 + rng.integers(-3, 4, size=(n, cols)).cumsum(1), 0,
+                   71).astype(np.uint8)
+    dist = make_matrix(DISTORTION_MSE)
+    for kw in (dict(n_clusters=1), dict(n_clusters=3)):
+        got = penc.encode(data, dist, well_state=WellState.debug(), shards=5,
+                          prime=False, device="cpu", **kw)
+        assert got.stats.coder_fallback_lanes == 5
+        assert got.stats.coder_fallback_reason == "no room on the card"
+        ref = phost.encode(data, dist, well_state=WellState.debug(),
+                           shards=5, prime=False, **kw)
+        assert got.compressed == ref.compressed
+        assert got.compressed == jenc.encode(
+            data, dist, well_state=WellState.debug(), shards=5, prime=False,
+            use_jax=False, **kw).compressed
+
+
+@pytest.mark.cuda
+def test_triples_and_chain_kernels_match_plain(monkeypatch):
+    """K2a and K2b each equal their plain version on the card, over two
+    chunks of columns with the cluster-id segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2a and K2b have no CPU mode)")
+    tables, md, qs, clusters, bank = _clustered(1003, 7, 3, 31, 100)
+    lane_counts = _lanes(1003, 100, 228)
+    plan = cd.LanePlan(tables, bank)
+    ct = _triples(plan, clusters, lane_counts, 100)
+    plan_t = cd.plan_to_torch(plan, "cuda")
+    m = torch.from_numpy(md.astype(np.int32)).cuda()
+    q = torch.from_numpy(qs.astype(np.int32)).cuda()
+    trip, fl = cd.triples(plan_t, m, q, lane_counts, 100, 2, 7)
+    want, wfl = cd.triples_reference(plan_t, m, q, lane_counts, 100, 2, 7)
+    assert torch.equal(trip, want) and torch.equal(fl, wfl)
+    seg = cd.segment_triples(ct, lane_counts, "cuda")
+    raw = cd.chain(seg, 1, lane_counts,
+                   cd.start_raw(len(lane_counts), "cuda", 4096))
+    want = cd.chain_reference(seg, 1, lane_counts)
+    assert torch.equal(raw[1], want[1]) and torch.equal(raw[2], want[2])
+    monkeypatch.setattr(cd, "TRIPLE_BYTES", 8 * len(lane_counts) * 228 * 4)
+    got = cd.encode_lanes_raw(plan_t, m, q, lane_counts, 100, ct)
+    _assert_same(cd.encode_lanes_raw(cd.plan_to_torch(plan, "cpu"), m.cpu(),
+                                     q.cpu(), lane_counts, 100, ct), got)

@@ -520,3 +520,39 @@ def test_cuda_lanes_per_warp_agree():
                               lanes.cl, lanes.lane_counts, 0, lanes.starts,
                               got, 33, lanes_per_warp=lpw)
         assert torch.equal(f, fin) and torch.equal(got, want), lpw
+
+
+def test_refused_layout_goes_to_the_host_decoder(monkeypatch):
+    """Where K5's layout does not fit the card, its lanes go to the host
+    decoder before any launch: bytes equal, every lane counted, the reason
+    in the stats."""
+    comp = _encode(_data(900, 8, seed=45), shards=5, n_clusters=3,
+                   prime=False)
+    monkeypatch.setattr(dd, "launch_refusal",
+                        lambda dplan_t, lmax, device: "no room on the card")
+    st = {}
+    got = port.decode(comp, device="cpu", stats=st)
+    assert np.array_equal(got, host_decode.decode(comp))
+    assert st["lanes"] == st["fallback_lanes"] == 5
+    assert st["fallback_reason"] == "no room on the card"
+    monkeypatch.undo()
+    assert dd.launch_refusal(port.prepare_lanes(comp, "cpu").dplan_t, 180,
+                             "cpu") is None
+
+
+@pytest.mark.parametrize("prime", [False, True], ids=["noprime", "prime"])
+def test_decode_in_waves(small_warmup, monkeypatch, prime):
+    """A tiny wave budget decodes the lanes in several K5 calls, byte-equal
+    to one wave and to the host decoder."""
+    comp = _encode(_data(1600, 6, seed=46), shards=6, n_clusters=2,
+                   prime=prime)
+    one = {}
+    want = port.decode(comp, device="cpu", stats=one)
+    assert one["waves"] == 1
+    monkeypatch.setattr(port, "WAVE_BYTES", 2 * 13 * 250)
+    st = {}
+    got = port.decode(comp, device="cpu", stats=st)
+    assert st["waves"] >= 3 and st["lanes"] == one["lanes"]
+    assert st["fallback_lanes"] == 0
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, host_decode.decode(comp))

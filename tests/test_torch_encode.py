@@ -289,14 +289,17 @@ def test_cli_round_trip(golden_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--hosts", "2"], ["--streaming"],
-                                   ["--reuse-books", "x.q"]],
-                         ids=["hosts", "streaming", "reuse"])
+                                   ["--reuse-books", "x.q"],
+                                   ["--profile", "phases"]],
+                         ids=["hosts", "streaming", "reuse", "profile"])
 def test_cli_flags_outside_the_slice(golden_dir, tmp_path, capsys, flags):
     rc = cli.main(["qvz_tpu_torch", *flags, "--device", "cpu",
                    str(golden_dir / "tiny.in"), str(tmp_path / "o")])
     out = capsys.readouterr().out
     assert rc == 1
     assert "not ported" in out and "ROADMAP" in out
+    assert f"'Modules to port' {cli._NOT_PORTED[flags[0]]}" in out
+    assert not (tmp_path / "o").exists()
 
 
 def test_cli_v1_round_trip(golden_dir, tmp_path):

@@ -357,3 +357,42 @@ def test_kernels_on_the_card():
     assert _build.LAUNCHES["issue"] == before.get("issue", 0) + 2
     assert _build.LAUNCHES["mix"] == before.get("mix", 0) + 1
     assert _build.LAUNCHES["selmix"] == before.get("selmix", 0) + 3
+
+
+LOOPS = """
+        Function : k
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*0020*/               @P0 BRA 0x70 ;
+        /*0030*/                   LDS.U16 R2, [R3] ;
+        /*0040*/                   IMAD R3, R2, R4, R3 ;
+        /*0050*/              @!P2 BRA 0x30 ;
+        /*0060*/                   STS.U16 [R4], R2 ;
+        /*0070*/                   LOP3.LUT R5, R5, R2, RZ, 0xfc, !PT ;
+        /*0080*/               @PT BRA 0x90 ;
+        /*0090*/                   ISETP.GE.AND P1, PT, R1, R6, PT ;
+        /*00a0*/              @!P1 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+"""
+
+
+def test_trip_min_takes_the_shortest_trip(monkeypatch):
+    """A trip's least instructions by pipe: the branch around the body
+    skips it; `through` forces the body; the nested loop counts nothing in
+    the outer one; an @PT branch is unconditional."""
+    monkeypatch.setattr(_build, "load", lambda: None)
+    monkeypatch.setattr(_build, "nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(mb.subprocess, "run",
+                        lambda *a, **k: type("R", (), {"stdout": LOOPS}))
+    insns = mb.sass_functions()["k"]
+    assert [i[3] for i in insns] == [False, False, True, False, False, True,
+                                     False, False, False, False, True, False]
+    assert mb.loop_spans(insns) == {0x10: 0xa0, 0x30: 0x50}
+    assert mb.trip_min(insns, 0x10) == {"issue": 6, "alu": 3, "fma": 0,
+                                        "shared": 0}
+    assert mb.trip_min(insns, 0x10, "STS") == {"issue": 7, "alu": 3,
+                                               "fma": 0, "shared": 0.5}
+    assert mb.trip_min(insns, 0x30) == {"issue": 3, "alu": 0, "fma": 1,
+                                        "shared": 0.5}
+    with pytest.raises(RuntimeError, match="no MUFU"):
+        mb.trip_min(insns, 0x10, "MUFU")
