@@ -62,9 +62,8 @@ Phases:
      it and to the encode's -u reconstruction + 33, no lane flagged (K2
      flagged none, and the flags are the encode's own rescale
      condition), the decoder launched by the decodes; the first decode's
-     peak device memory (torch.cuda.max_memory_allocated), its host RSS
-     (the peak, VmHWM, where the process may reset it, else the RSS
-     after) and its waves of lanes
+     peak device memory (torch.cuda.max_memory_allocated), the host RSS
+     before and after it and its waves of lanes
  13. 300,000 x 2 at --shards 2, unprimed, whose two lanes reach the
      rescale: flagged, decoded again on the host, byte-equal
  14. K5 over all columns of the four containers at 32, 16, 8, 4, 2 and 1
@@ -79,11 +78,15 @@ Phases:
      fill the shared memory of every SM; per leg the rate by source ops
      and by the SASS instructions of its kernel's inner loop (cuobjdump),
      with the loop's opcode counts and its bound by pipe
- 16. 200,000 x 20 at -c REFUSED_K, whose plan K5 refuses (and takes at
-     one cluster fewer): the encode on the card byte-equal to the host
-     engine, K2a taking the plan or its lanes coded on the host (counted,
-     with the reason); decode(device="cuda") byte-equal to the host
-     decoder, every lane refused before any launch, counted
+ 16. 200,000 x 20 at -c BIG_K, the first cluster count whose plan does
+     not fit K5's shared-memory layout (K5 stages it at one cluster
+     fewer): the encode on the card byte-equal to the host engine and
+     decode(device="cuda") byte-equal to the host decoder, K2a and K5
+     reading the plan's tables from device memory (layout 1), with hist,
+     kmeans, quantize, coder_triples, coder_chain and decoder launched
+     by them and no lane coded or decoded on the host; then K2a and K5 in
+     each layout that holds the plan, device-memory uses (layout 2)
+     included, against their plain versions over all 20 columns
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns. Each kernel's bound (qvz_tpu_torch.roofline) is the
@@ -118,8 +121,8 @@ import time
 STEP_OPS = 100
 LANES_SWEEP = (32, 16, 8, 4, 2, 1)
 # Phase 16's cluster count: at 200,000 x 20 the first K above 149 whose
-# plan K5 refuses (the card's shared memory); the phase checks both.
-REFUSED_K = 150
+# plan does not fit K5's shared-memory layout; the phase checks both.
+BIG_K = 150
 
 
 def k5_bound(lanes, cols: int, ops_rate: float):
@@ -173,7 +176,8 @@ def coder_bounds(gpu, plan_t, W: int, L: int, n_lines: int, cols: int,
         for k, v in per.items():
             total[k] = total.get(k, 0) + trips * v
 
-    a, b = func("triples_kernel"), func("chain_kernel")
+    # K2a's shared-memory layout, the one the main path runs
+    a, b = func("triples_kernelILi0E"), func("chain_kernel")
     zero = _loop(mb, a, "STS.128")
     step = _loop(mb, a, "STG.E.64", without="BAR")
     prefix = _loop(mb, a, "LDS.U16", inside=step)
@@ -329,22 +333,12 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
 
 
 def proc_status_kb(field: str) -> int:
-    """A field of /proc/self/status in kB (VmRSS, VmHWM), 0 if absent."""
+    """A field of /proc/self/status in kB (VmRSS), 0 if absent."""
     with open("/proc/self/status") as f:
         for line in f:
             if line.startswith(field + ":"):
                 return int(line.split()[1])
     return 0
-
-
-def reset_peak_rss() -> bool:
-    """Resets this process's VmHWM to its RSS (Linux clear_refs 5)."""
-    try:
-        with open("/proc/self/clear_refs", "w") as f:
-            f.write("5")
-        return True
-    except OSError:
-        return False
 
 
 def require(cond: bool, what: str) -> None:
@@ -695,16 +689,12 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
         torch.cuda.reset_peak_memory_stats()
         dev_before = torch.cuda.memory_allocated()
         rss_before = proc_status_kb("VmRSS")
-        hwm_reset = reset_peak_rss()
         got = port.decode(comp, device="cuda", stats=st)
         mem = (f"device memory {dev_before / 2**20:.1f} MiB allocated before"
                f", peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
                f"(torch.cuda.max_memory_allocated); host RSS "
                f"{rss_before / 1024:.1f} MiB before, "
-               + (f"peak {proc_status_kb('VmHWM') / 1024:.1f} MiB (VmHWM "
-                  "reset before the decode)" if hwm_reset else
-                  f"{proc_status_kb('VmRSS') / 1024:.1f} MiB after (the "
-                  "peak could not be reset)"))
+               f"{proc_status_kb('VmRSS') / 1024:.1f} MiB after")
         require(np.array_equal(got, want),
                 f"{name}: decode(device='cuda') byte-equal to the host "
                 "decoder")
@@ -780,23 +770,26 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
     return res
 
 
-def refused_phase(torch, np, dist) -> dict:
-    """Phase 16: a plan whose layout K5 refuses. 200,000 x 20 of the
-    phase-2 generator at -c REFUSED_K (K5 takes the plan at one cluster
-    fewer): the encode on the card, K2a taking the plan or its lanes going
-    to the host coder, counted; decode(device="cuda") sends every lane to
-    the host decoder before any launch, counted, byte-equal."""
+def big_plan_phase(torch, np, dist) -> None:
+    """Phase 16: a plan too large for K5's shared-memory layout. 200,000 x
+    20 of the phase-2 generator at -c BIG_K (K5 stages the plan at one
+    cluster fewer): the encode and decode(device="cuda") run every lane on
+    the card, K2a and K5 reading the plan's tables from device memory;
+    then K2a and K5 in each layout that holds the plan against their plain
+    versions over all columns."""
     from qvz_tpu_torch import _build
     from qvz_tpu_torch.constants import MODE_RATIO
     from qvz_tpu_torch.native import runtime as rt
     from qvz_tpu_torch.ops import coder_device as cd
     from qvz_tpu_torch.ops import decoder_device as dd
+    from qvz_tpu_torch.ops import quantize as tq
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import decode as pdec
     from qvz_tpu_torch.pipeline import encode as port
     from qvz_tpu_torch.pipeline import host
 
-    n, cols, K = 200_000, 20, REFUSED_K
+    n, cols, K = 200_000, 20, BIG_K
+    dev = torch.device("cuda")
     data = make_input(n, cols, 42)
     fits = {}
     for k in (K - 1, K):
@@ -804,11 +797,14 @@ def refused_phase(torch, np, dist) -> dict:
         c0, cond = rt.stats_host(data, cl, k)
         tables = rt.Design(c0, cond, MODE_RATIO, 0.5, dist).tables()
         dplan_t = dd.decode_plan_to_torch(
-            dd.DecodePlan(cd.LanePlan(tables, None), tables), "cuda")
-        fits[k] = (dd.launch_refusal(dplan_t, 260, "cuda"), dplan_t["S"],
-                   dplan_t["models_max"])
-    require(fits[K - 1][0] is None and fits[K][0] is not None,
-            f"K5 takes the plan at -c {K - 1} and refuses it at -c {K}")
+            dd.DecodePlan(cd.LanePlan(tables, None), tables), dev)
+        fits[k] = (dd.card_layout(dplan_t, 260), cd.card_layout(dplan_t, 260),
+                   dplan_t["S"], dplan_t["models_max"])
+    require(fits[K - 1][0] == 0 and fits[K][:2] == (1, 1),
+            f"K5 stages the plan at -c {K - 1} and, like K2a, reads its "
+            f"tables from device memory at -c {K} (layouts {fits})")
+
+    # -- the main path: every lane on the card ------------------------------
     _build.LAUNCHES.clear()
     t = time.perf_counter()
     out = port.encode(data, dist, n_clusters=K, well_state=WellState.debug(),
@@ -825,28 +821,67 @@ def refused_phase(torch, np, dist) -> dict:
             f"-c {K}: container byte-equal to the port's host engine")
     require(np.array_equal(got, host.decode(out.compressed)),
             f"-c {K}: decode(device='cuda') byte-equal to the host decoder")
-    require(st["fallback_lanes"] == st["lanes"] and "fallback_reason" in st,
-            f"-c {K}: every lane refused by K5, counted, with the reason")
-    refused = out.stats.coder_fallback_reason is not None
-    require(launches.get("decoder", 0) == 0
-            and (launches.get("coder_triples", 0) == 0) == refused
-            and all(launches.get(k, 0) >= 1
-                    for k in ("hist", "kmeans", "quantize")),
-            f"-c {K}: the kernels launched match the plan's fit")
-    print(f"[16] 200000 x 20 at -c {K} (S = {fits[K][1]}, "
-          f"{fits[K][2]} models a column; at -c {K - 1}: S = {fits[K - 1][1]},"
-          f" {fits[K - 1][2]} models, which K5 takes): encode on the card "
-          f"{enc_secs:.3f} s, byte-equal to the host engine; K2a "
-          + (f"refuses ({out.stats.coder_fallback_reason}): "
-             f"{out.stats.coder_fallback_lanes} lanes coded on the host"
-             if refused else
-             f"takes the plan, {out.stats.coder_fallback_lanes} lanes on the "
-             "host")
-          + f"; decode(device='cuda') {dec_secs:.3f} s, byte-equal to the "
-          f"host decoder, {st['fallback_lanes']} of {st['lanes']} lanes "
-          f"refused ({st['fallback_reason']}); launches {launches}",
-          flush=True)
-    return launches
+    require(out.stats.coder_fallback_lanes == 0 and st["fallback_lanes"] == 0,
+            f"-c {K}: no lane coded or decoded on the host")
+    for name in ("hist", "kmeans", "quantize", "coder_triples",
+                 "coder_chain", "decoder"):
+        require(launches.get(name, 0) >= 1, f"-c {K}: {name} launched")
+
+    # -- each layout that holds the plan against the plain versions --------
+    data_t = torch.from_numpy(np.ascontiguousarray(data.T)).to(dev)
+    counts, states, offs, _ = port.shard_plan(
+        n, cols, port.device_lane_count(n), True, WellState.debug())
+    draws_t = torch.from_numpy(host._shard_draws(states, counts, cols)).to(
+        dev).t().contiguous()
+    mid, qs, _ = tq.quantize_t_device(tq.tables_to_torch(tables, dev), data_t,
+                                      draws_t, torch.from_numpy(cl).to(dev))
+    plan_t = cd.plan_to_torch(cd.LanePlan(tables, None), dev)
+    lane_counts, base = counts[1:], int(offs[1])
+    want = cd.triples_reference(plan_t, mid, qs, lane_counts, base, 0, cols)
+    a_ms = {}
+    for lay in (1, 2):
+        def a_run():
+            return cd.triples(plan_t, mid, qs, lane_counts, base, 0, cols,
+                              layout=lay)
+
+        trip, resc = a_run()
+        require(torch.equal(trip, want[0]) and torch.equal(resc, want[1]),
+                f"-c {K}: K2a in layout {lay} equals its plain version")
+        a_ms[lay] = statistics.median(event_ms(a_run, torch)
+                                      for _ in range(3))
+    del want, trip, resc, mid, qs, data_t, draws_t
+
+    lanes = pdec.prepare_lanes(out.compressed, "cuda")
+    rows = torch.zeros((lanes.draws_t.shape[1], cols + 1), dtype=torch.uint8,
+                       device=dev)
+    fin = dd.decode_lanes_reference(lanes.dplan_t, lanes.pays, lanes.draws_t,
+                                    lanes.cl, lanes.lane_counts, 0,
+                                    lanes.starts, rows, 33)
+    k5_ms = {}
+    for lay in (1, 2):
+        o = torch.zeros_like(rows)
+
+        def k5_run():
+            return dd.decode_lanes_t(lanes.dplan_t, lanes.pays, lanes.draws_t,
+                                     lanes.cl, lanes.lane_counts, 0,
+                                     lanes.starts, o, 33, layout=lay)
+
+        f = k5_run()
+        require(torch.equal(f, fin) and torch.equal(o, rows),
+                f"-c {K}: K5 in layout {lay} equals its plain version")
+        k5_ms[lay] = statistics.median(event_ms(k5_run, torch)
+                                       for _ in range(3))
+    print(f"[16] 200000 x 20 at -c {K} (S = {fits[K][2]}, {fits[K][3]} "
+          f"models a column; at -c {K - 1}: S = {fits[K - 1][2]}, "
+          f"{fits[K - 1][3]} models; layouts K5, K2a: -c {K - 1} "
+          f"{fits[K - 1][:2]}, -c {K} {fits[K][:2]}): encode on the card "
+          f"{enc_secs:.3f} s, byte-equal to the host engine; "
+          f"decode(device='cuda') {dec_secs:.3f} s, byte-equal to the host "
+          f"decoder; {len(lanes.lane_counts)} lanes, 0 coded or decoded on "
+          f"the host; launches {launches}; over all {cols} columns, equal "
+          f"to the plain versions: K2a layout 1 {a_ms[1]:.3f} ms, layout 2 "
+          f"{a_ms[2]:.3f} ms; K5 layout 1 {k5_ms[1]:.3f} ms, layout 2 "
+          f"{k5_ms[2]:.3f} ms (median of 3)", flush=True)
 
 
 def microbench_phase() -> list:
@@ -1057,8 +1092,8 @@ def main() -> int:
     # -- 15. the integer-issue microbenchmark --------------------------------
     mb_kernels = microbench_phase()
 
-    # -- 16. a plan whose layout K5 refuses ------------------------------------
-    refused_phase(torch, np, dist)
+    # -- 16. a plan too large for K5's shared-memory layout -----------------
+    big_plan_phase(torch, np, dist)
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [

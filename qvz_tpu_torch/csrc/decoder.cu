@@ -36,7 +36,11 @@
 //   * The column's tables in shared memory. The lanes of a block walk the
 //     columns together; at each column start the block stages the
 //     column's ptab row, model records (slot base, cardinality, initial
-//     total), initial counts and symbol row with coalesced loads.
+//     total), initial counts and symbol row with coalesced loads. A plan
+//     too large for that (many clusters: S = 17,100 slots and a 43 KB
+//     ptab row at -c 150) reads them from device memory instead, and one
+//     where a lane's uses do not fit either keeps those in a device-memory
+//     scratch (decode_lanes_kernel's kLayout), so K5 takes every plan.
 //   * Counts and totals in shared memory. A lane's count of a slot is the
 //     staged initial count + 8 x its uses in this column, a u16 per slot;
 //     a model's total is its initial total + 8 x its uses, a u16 per
@@ -83,7 +87,6 @@ constexpr uint32_t kStep = 8;
 constexpr int kAlphabet = 72;
 constexpr int kOverrunBytes = 64;
 constexpr int kMaxLanesPerBlock = 32;
-constexpr uint32_t kBadModel = 0x8000u;  // tile entry: unreachable context
 constexpr int64_t kFlagBad = 1, kFlagRescale = 2, kFlagOverrun = 4;
 
 __device__ __forceinline__ uint64_t bswap64(uint64_t v) {
@@ -161,15 +164,24 @@ __device__ __forceinline__ uint32_t exact_div(uint64_t a, uint32_t n,
   return static_cast<uint32_t>(q);
 }
 
+// Where the column's tables and the lanes' uses live:
+//   kLayout 0  both in shared memory (every plan of -c 1 and -c 3);
+//   kLayout 1  the tables read from device memory through the read-only
+//              cache, the uses in shared memory: a plan whose tables and
+//              one lane's uses do not fit a block together (-c 150);
+//   kLayout 2  the uses too in device memory, a scratch of lpb x (s_pad +
+//              m_pad) u16 for each block of lanes: a plan where one lane's
+//              uses alone do not fit. Every plan fits this layout.
 // Dynamic shared memory, in this order (every size a multiple of 8 bytes):
-//   mtab_s  int2[m_pad]           the column's model records
-//   init_s  int32[s_pad]          the column's initial counts
-//   ptab_s  int32[ptab_w]         the column's ptab row
-//   occ     u16[lpb][s_pad]       each lane's uses of each slot
-//   muse    u16[lpb][m_pad]       each lane's uses of each model
+//   mtab_s  int2[m_pad]           the column's model records       (0)
+//   init_s  int32[s_pad]          the column's initial counts      (0)
+//   ptab_s  int32[ptab_w]         the column's ptab row            (0)
+//   occ     u16[lpb][s_pad]       each lane's uses of each slot    (0, 1)
+//   muse    u16[lpb][m_pad]       each lane's uses of each model   (0, 1)
 //   tile    u16[lpb][lt]          the chunk's column-local model indices
-//   sym_s   u8[s_pad]             the column's symbol row
+//   sym_s   u8[s_pad]             the column's symbol row          (0)
 //   symt    u8[lpb][lt]           the chunk's decoded symbols
+template <int kLayout>
 __global__ void decode_lanes_kernel(
     const uint64_t* __restrict__ payload, const int64_t* __restrict__ pay_off,
     const int64_t* __restrict__ pay_len, const uint8_t* __restrict__ draws_t,
@@ -181,28 +193,34 @@ __global__ void decode_lanes_kernel(
     const int32_t* __restrict__ init_counts,
     const int32_t* __restrict__ col_slots, const int32_t* __restrict__ symtab,
     int S, const int64_t* __restrict__ state_in, uint8_t* __restrict__ out_t,
-    int64_t* __restrict__ state_out, int lpw, int lpb, int lt, int s_pad,
-    int m_pad) {
+    int64_t* __restrict__ state_out, uint16_t* __restrict__ scratch, int lpw,
+    int lpb, int lt, int s_pad, int m_pad) {
   extern __shared__ uint4 smem_raw[];
   char* sp = reinterpret_cast<char*>(smem_raw);
   int2* mtab_s = reinterpret_cast<int2*>(sp);
-  sp += static_cast<size_t>(m_pad) * 8;
-  int32_t* init_s = reinterpret_cast<int32_t*>(sp);
-  sp += static_cast<size_t>(s_pad) * 4;
-  int32_t* ptab_s = reinterpret_cast<int32_t*>(sp);
-  sp += static_cast<size_t>(ptab_w) * 4;
-  uint16_t* occ = reinterpret_cast<uint16_t*>(sp);
-  sp += static_cast<size_t>(lpb) * s_pad * 2;
-  uint16_t* muse = reinterpret_cast<uint16_t*>(sp);
-  sp += static_cast<size_t>(lpb) * m_pad * 2;
+  int32_t* init_s =
+      reinterpret_cast<int32_t*>(sp + static_cast<size_t>(m_pad) * 8);
+  int32_t* ptab_s = init_s + s_pad;
+  if (kLayout == 0)
+    sp += static_cast<size_t>(m_pad) * 8 + static_cast<size_t>(s_pad) * 4 +
+          static_cast<size_t>(ptab_w) * 4;
+  uint16_t* occ;
+  if (kLayout < 2) {
+    occ = reinterpret_cast<uint16_t*>(sp);
+    sp += static_cast<size_t>(lpb) * (s_pad + m_pad) * 2;
+  } else {
+    occ = scratch + static_cast<size_t>(blockIdx.x) * lpb * (s_pad + m_pad);
+  }
+  uint16_t* muse = occ + static_cast<size_t>(lpb) * s_pad;
   uint16_t* tile = reinterpret_cast<uint16_t*>(sp);
   sp += static_cast<size_t>(lpb) * lt * 2;
   uint8_t* sym_s = reinterpret_cast<uint8_t*>(sp);
-  sp += s_pad;
+  if (kLayout == 0) sp += s_pad;
   uint8_t* symt = reinterpret_cast<uint8_t*>(sp);
 
   __shared__ int64_t lane_lo_s[kMaxLanesPerBlock];
   __shared__ int lane_len_s[kMaxLanesPerBlock];
+  __shared__ int lane_bad_s[kMaxLanesPerBlock];  // an unreachable context
   __shared__ int block_len;
 
   const int tid = threadIdx.x;
@@ -210,6 +228,7 @@ __global__ void decode_lanes_kernel(
   const int w0 = blockIdx.x * lpb;
   const int nl = min(lpb, lanes - w0);  // lanes of this block
   if (tid == 0) block_len = 0;
+  if (tid < kMaxLanesPerBlock) lane_bad_s[tid] = 0;
   __syncthreads();
   if (tid < nl) {
     const int64_t lo = lane_off[w0 + tid];
@@ -257,16 +276,21 @@ __global__ void decode_lanes_kernel(
       reinterpret_cast<uint4*>(muse + static_cast<size_t>(i / mz) * m_pad)
           [i % mz] = make_uint4(0, 0, 0, 0);
     }
-    for (int i = tid; i < mc; i += nthreads) mtab_s[i] = mtab[moff + i];
     const int32_t* irow = init_counts + static_cast<int64_t>(c) * S;
     const int32_t* srow = symtab + static_cast<int64_t>(c) * S;
-    for (int i = tid; i < ns; i += nthreads) {
-      init_s[i] = irow[i];
-      sym_s[i] = static_cast<uint8_t>(srow[i]);
-    }
     const int32_t* prow = ptab + static_cast<int64_t>(c) * ptab_w;
-    for (int i = tid; i < ptab_w; i += nthreads) ptab_s[i] = prow[i];
+    if (kLayout == 0) {
+      for (int i = tid; i < mc; i += nthreads) mtab_s[i] = mtab[moff + i];
+      for (int i = tid; i < ns; i += nthreads) {
+        init_s[i] = irow[i];
+        sym_s[i] = static_cast<uint8_t>(srow[i]);
+      }
+      for (int i = tid; i < ptab_w; i += nthreads) ptab_s[i] = prow[i];
+    }
     __syncthreads();
+    const int2* mt = kLayout == 0 ? mtab_s : mtab + moff;
+    const int32_t* ini = kLayout == 0 ? init_s : irow;
+    const int32_t* ptb = kLayout == 0 ? ptab_s : prow;
 
     const uint8_t* drow = draws_t + static_cast<int64_t>(c) * n;
     const uint8_t* prev_row =
@@ -280,37 +304,35 @@ __global__ void decode_lanes_kernel(
         const int64_t line = lane_lo_s[k] + j0 + jj;
         const int pv = c ? prev_row[line] : 0;
         const int ci = cl ? cl[line] : 0;
-        int p = ptab_s[ci * kAlphabet + pv];
-        uint32_t flag = 0;
+        int p = ptb[ci * kAlphabet + pv];
         if (p < 0) {
-          flag = kBadModel;
+          lane_bad_s[k] = 1;
           p = 0;
         }
         const int m = 1 + 2 * p + (drow[line] >= __ldg(qrtab + p) ? 1 : 0);
-        tile[i] = static_cast<uint16_t>(__ldg(mloc + m) | flag);
+        tile[i] = static_cast<uint16_t>(__ldg(mloc + m));
       }
       __syncthreads();
 
       // -- the serial steps, one thread a lane -----------------------------
       const int steps = active ? min(lt, my_len - j0) : 0;
       uint32_t ml_next = steps > 0 ? my_tile[0] : 0;
-      int2 mi_next = mtab_s[ml_next & (kBadModel - 1)];
+      int2 mi_next = steps > 0 ? mt[ml_next] : make_int2(0, 0);
       for (int jj = 0; jj < steps; ++jj) {
-        const uint32_t mlf = ml_next;
+        const uint32_t ml = ml_next;
         const int2 mi = mi_next;
         if (jj + 1 < steps) {
           ml_next = my_tile[jj + 1];
-          mi_next = mtab_s[ml_next & (kBadModel - 1)];
+          mi_next = mt[ml_next];
         }
-        if (mlf & kBadModel) bad = true;
         const int sb = mi.x;
         const uint32_t card = static_cast<uint32_t>(mi.y) >> 20;
         if (t < l || t > u) bad = true;
         int x = 0;
         if (card > 1) {
           uint16_t* oc = my_occ + sb;
-          const int32_t* ic = init_s + sb;
-          uint16_t& mu = my_muse[mlf & (kBadModel - 1)];
+          const int32_t* ic = ini + sb;
+          uint16_t& mu = my_muse[ml];
           const uint32_t total =
               (static_cast<uint32_t>(mi.y) & 0xFFFFFu) + kStep * mu;
           const uint64_t range = static_cast<uint64_t>(u) - l + 1u;
@@ -358,7 +380,8 @@ __global__ void decode_lanes_kernel(
             t = (((t << k3) | br.getk(k3)) & kFull) ^ kMsbBit;
           }
         }
-        my_symt[jj] = sym_s[sb + x];
+        my_symt[jj] = kLayout == 0 ? sym_s[sb + x]
+                                   : static_cast<uint8_t>(srow[sb + x]);
       }
       __syncthreads();
 
@@ -375,6 +398,7 @@ __global__ void decode_lanes_kernel(
   }
 
   if (active) {
+    bad |= lane_bad_s[ll] != 0;
     const int64_t bits = br.consumed();
     const bool overrun = bits > 8 * (br.len + kOverrunBytes);
     state_out[w * 5 + 0] = l;
@@ -419,6 +443,19 @@ __global__ void text_rows_kernel(const uint8_t* __restrict__ out_t, int64_t n,
 
 }  // namespace
 
+template <int kLayout, typename... Args>
+cudaError_t launch_decode(int blocks, int threads, int64_t smem_bytes,
+                          cudaStream_t stream, Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      decode_lanes_kernel<kLayout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes));
+  if (e != cudaSuccess) return e;
+  decode_lanes_kernel<kLayout><<<blocks, threads, smem_bytes, stream>>>(
+      args...);
+  return cudaGetLastError();
+}
+
 // The shared memory one block may ask for on the current device.
 extern "C" int qvz_decoder_smem_limit() {
   int dev = 0, v = 0;
@@ -440,8 +477,10 @@ extern "C" int qvz_decoder_smem_limit() {
 // 4) int64 (l, u, t, consumed bits); out_t: (cols, n) uint8 scratch; out:
 // (n, row_stride) uint8 text rows, row_stride >= cols; state_out: (lanes,
 // 5) int64 (l, u, t, consumed bits, flags). lpw lanes decode in each warp,
-// lpb lanes in each block (<= 32), lt steps a chunk; smem_bytes is the
-// dynamic shared memory of that shape.
+// lpb lanes in each block (<= 32), lt steps a chunk, in `layout` 0, 1 or 2
+// (decode_lanes_kernel); smem_bytes is the dynamic shared memory of that
+// shape; scratch: for layout 2, ceil(lanes / lpb) x lpb x (s_pad + m_pad)
+// u16 of device memory, else unused.
 extern "C" int qvz_decode_lanes(
     const uint64_t* payload, const int64_t* pay_off, const int64_t* pay_len,
     const uint8_t* draws_t, int64_t n, const uint8_t* cl,
@@ -451,23 +490,29 @@ extern "C" int qvz_decode_lanes(
     const int32_t* init_counts, const int32_t* col_slots,
     const int32_t* symtab, int S, const int64_t* state_in, uint8_t* out_t,
     uint8_t* out, int64_t row_stride, int sym_add, int64_t* state_out,
-    int lpw, int lpb, int lt, int s_pad, int m_pad, int64_t smem_bytes,
-    int64_t line_lo, int64_t line_hi, void* stream) {
+    int layout, uint16_t* scratch, int lpw, int lpb, int lt, int s_pad,
+    int m_pad, int64_t smem_bytes, int64_t line_lo, int64_t line_hi,
+    void* stream) {
   if (lanes <= 0) return 0;
-  if (lpw < 1 || lpw > 32 || lpb < 1 || lpb > kMaxLanesPerBlock)
+  if (lpw < 1 || lpw > 32 || lpb < 1 || lpb > kMaxLanesPerBlock ||
+      layout < 0 || layout > 2 || (layout == 2 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int warps = (lpb + lpw - 1) / lpw;
   const int blocks = (lanes + lpb - 1) / lpb;
-  decode_lanes_kernel<<<blocks, 32 * warps, smem_bytes, st>>>(
-      payload, pay_off, pay_len, draws_t, n, cl, lane_off, lanes, cols_run,
-      ptab, ptab_w, qrtab, mloc, mtab, col_model_off, init_counts, col_slots,
-      symtab, S, state_in, out_t, state_out, lpw, lpb, lt, s_pad, m_pad);
-  e = cudaGetLastError();
+#define QVZ_DECODE_ARGS                                                      \
+  payload, pay_off, pay_len, draws_t, n, cl, lane_off, lanes, cols_run,      \
+      ptab, ptab_w, qrtab, mloc, mtab, col_model_off, init_counts,           \
+      col_slots, symtab, S, state_in, out_t, state_out, scratch, lpw, lpb,   \
+      lt, s_pad, m_pad
+  cudaError_t e;
+  if (layout == 0)
+    e = launch_decode<0>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS);
+  else if (layout == 1)
+    e = launch_decode<1>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS);
+  else
+    e = launch_decode<2>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS);
+#undef QVZ_DECODE_ARGS
   if (e != cudaSuccess) return static_cast<int>(e);
   if (cols_run > 0 && line_hi > line_lo) {
     const dim3 grid(static_cast<unsigned>((line_hi - line_lo + 31) / 32),

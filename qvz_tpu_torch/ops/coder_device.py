@@ -75,6 +75,10 @@ LANES_PER_WARP = 4
 CHAIN_LANES_PER_WARP = 8
 _LANES_PER_BLOCK = 32
 TILE_STEPS = 64
+# K2a's and K5's layouts, in the order a plan tries them (csrc/coder.cu,
+# csrc/decoder.cu): 0 the column's tables and the lanes' uses in shared
+# memory, 1 the tables in device memory, 2 the uses there too.
+LAYOUTS = (0, 1, 2)
 _K2A_STATIC_SMEM = 32 * 12   # K2a's static shared memory: lane offsets
 _SMEM_RESERVED = 1024    # shared memory the card keeps for each block
 
@@ -458,96 +462,82 @@ def _round8(x: int) -> int:
 
 
 def triples_shape(S: int, models_max: int, lmax: int, smem_block: int,
-                  smem_sm: int, lanes_per_warp: int = LANES_PER_WARP) -> dict:
+                  smem_sm: int, lanes_per_warp: int = LANES_PER_WARP,
+                  layout: int | None = None) -> dict:
     """K2a's block shape for a plan of S slots and at most models_max
     models a column, lanes of at most lmax lines: lanes_per_warp lanes in
     each warp, tiles of up to TILE_STEPS steps, and the lanes a block (at
     most 32) that put the most lanes on an SM within smem_block bytes of
-    shared memory a block, smem_sm an SM and 2,048 threads an SM (the
-    layout of csrc/coder.cu: the column's tables, and for each lane a u16
-    a slot and a model and a u32 a tile step). Raises if even one lane
-    does not fit."""
+    shared memory a block, smem_sm an SM and 2,048 threads an SM. The
+    layout (csrc/coder.cu, triples_kernel) is the first of LAYOUTS in
+    which one lane fits, or `layout` where given (which raises if even one
+    lane does not fit it): 0 stages the column's tables and keeps each
+    lane's uses (a u16 a slot and a model) in shared memory, 1 reads the
+    tables from device memory, 2 keeps the uses there too; every layout
+    keeps a u32 a tile step in shared memory."""
     if lanes_per_warp not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"lanes_per_warp {lanes_per_warp} is not a power "
                          "of two up to 32")
     s_pad, m_pad = _round8(max(S, 1)), _round8(max(models_max, 1))
     lt = min(_round8(max(lmax, 1)), TILE_STEPS)
+    tables = (m_pad * 8 + s_pad * 8, 0, 0)
+    uses = ((s_pad + m_pad) * 2,) * 2 + (0,)
 
-    def size(lpb):
-        return m_pad * 8 + s_pad * 8 + lpb * ((s_pad + m_pad) * 2 + lt * 4)
+    for lay in LAYOUTS if layout is None else (layout,):
+        def size(lpb):
+            return tables[lay] + lpb * (uses[lay] + lt * 4)
 
-    best = None
-    for lpb in range(_LANES_PER_BLOCK, 0, -1):
-        if size(lpb) + _K2A_STATIC_SMEM > smem_block:
-            continue
-        threads = 32 * -(-lpb // lanes_per_warp)
-        blocks = min(32, 2048 // threads,
-                     smem_sm // (size(lpb) + _K2A_STATIC_SMEM
-                                 + _SMEM_RESERVED))
-        if best is None or lpb * blocks > best[1]:
-            best = (lpb, lpb * blocks)
-    if best is None:
-        raise ValueError(f"K2a needs {size(1) + _K2A_STATIC_SMEM} B of "
-                         f"shared memory for S = {S} and {models_max} models "
-                         f"a column, more than the card's {smem_block} B")
-    return {"lpw": min(lanes_per_warp, best[0]), "lpb": best[0], "lt": lt,
-            "lanes_per_sm": best[1], "s_pad": s_pad, "m_pad": m_pad,
-            "smem": size(best[0])}
+        best = None
+        for lpb in range(_LANES_PER_BLOCK, 0, -1):
+            if size(lpb) + _K2A_STATIC_SMEM > smem_block:
+                continue
+            threads = 32 * -(-lpb // lanes_per_warp)
+            blocks = min(32, 2048 // threads,
+                         smem_sm // (size(lpb) + _K2A_STATIC_SMEM
+                                     + _SMEM_RESERVED))
+            if best is None or lpb * blocks > best[1]:
+                best = (lpb, lpb * blocks)
+        if best is not None:
+            return {"lpw": min(lanes_per_warp, best[0]), "lpb": best[0],
+                    "lt": lt, "lanes_per_sm": best[1], "s_pad": s_pad,
+                    "m_pad": m_pad, "smem": size(best[0]), "layout": lay}
+    raise ValueError(f"K2a's layout {lay} needs {size(1) + _K2A_STATIC_SMEM} "
+                     f"B of shared memory for S = {S} and {models_max} "
+                     f"models a column, more than the card's {smem_block} B")
 
 
 def _card_shape(lib, plan_t: dict, lmax: int,
-                lanes_per_warp: int = LANES_PER_WARP) -> dict:
+                lanes_per_warp: int = LANES_PER_WARP,
+                layout: int | None = None) -> dict:
     """``triples_shape`` on the current card's shared memory."""
     block, sm = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(lib.qvz_coder_smem_limits(ctypes.byref(block),
                                            ctypes.byref(sm)),
                  "shared memory query")
     return triples_shape(plan_t["S"], plan_t["models_max"], lmax,
-                         block.value, sm.value, lanes_per_warp)
+                         block.value, sm.value, lanes_per_warp, layout)
 
 
-def triples_refusal(plan_t: dict, lmax: int, device) -> str | None:
-    """Why K2a cannot take lanes of at most lmax lines of the plan on
-    `device`, or None. The plain version takes any plan; on a CUDA device
-    the plan's layout must fit the card's shared memory
-    (``triples_shape``)."""
-    if torch.device(device).type != "cuda":
-        return None
-    try:
-        _card_shape(_build.load(), plan_t, lmax)
-    except ValueError as e:
-        return str(e)
-    return None
-
-
-def _flagged_raw(W: int, device):
-    """The raw lane output with every lane flagged for the host coder."""
-    words, n_words, carry = start_raw(W, device)
-    carry[5] = 1
-    return words, n_words, carry
+def card_layout(plan_t: dict, lmax: int) -> int:
+    """The layout K2a takes for lanes of at most lmax lines of this plan
+    on the current card (``triples_shape``)."""
+    return _card_shape(_build.load(), plan_t, lmax)["layout"]
 
 
 def code_lanes(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
                lane_counts, base: int,
-               cluster_triples: np.ndarray | None = None,
-               stats: dict | None = None):
+               cluster_triples: np.ndarray | None = None):
     """Code lane w = lines base + sum(lane_counts[:w]) onwards, for
     lane_counts[w] lines, from the (cols, N) int32 quantize outputs;
     cluster_triples, (W, max lane count, 3) uint32 or None, are the
     lanes' cluster-id steps. Returns the raw lane output (words, n_words,
     carry). CPU tensors take the plain version; CUDA tensors launch K2a
-    and K2b (csrc/coder.cu) over chunks of columns, or raise. Where K2a's
-    layout does not fit the card (``triples_refusal``), nothing launches:
-    every lane comes back flagged for the host coder, and `stats`, if
-    given, gets the reason under "fallback_reason"."""
+    and K2b (csrc/coder.cu) over chunks of columns, K2a in the layout
+    ``triples_shape`` picks for the card (every plan has one), or
+    raise."""
     _check(plan_t, mid, qs, lane_counts, base, cluster_triples)
     dev = mid.device
     W = len(lane_counts)
-    reason = triples_refusal(plan_t, max(lane_counts, default=0), dev)
-    if reason is not None:
-        if stats is not None:
-            stats["fallback_reason"] = reason
-        return _flagged_raw(W, dev)
     if dev.type == "cpu":
         return encode_lanes_reference(plan_t, mid, qs, lane_counts, base,
                                       cluster_triples)
@@ -565,13 +555,25 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _uses_scratch(shape: dict, W: int, dev) -> torch.Tensor | None:
+    """Layout 2's device-memory uses: (s_pad + m_pad) u16 for each lane
+    of each block (K2a's and K5's); None in the other layouts."""
+    if shape["layout"] != 2:
+        return None
+    lanes = -(-W // shape["lpb"]) * shape["lpb"]
+    return torch.empty(lanes * (shape["s_pad"] + shape["m_pad"]),
+                       dtype=torch.int16, device=dev)
+
+
 def triples(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor, lane_counts,
             base: int, c0: int, c1: int,
-            lanes_per_warp: int = LANES_PER_WARP):
+            lanes_per_warp: int = LANES_PER_WARP,
+            layout: int | None = None):
     """K2a over columns c0 .. c1 - 1: (triples, rescale flags) as
     ``triples_reference`` returns them. CPU tensors take the plain
     version; CUDA tensors launch K2a (csrc/coder.cu), lanes_per_warp
-    lanes in each warp, or raise."""
+    lanes in each warp, in `layout` (``triples_shape``'s choice where
+    None), or raise."""
     _check(plan_t, mid, qs, lane_counts, base, None)
     if not 0 <= c0 < c1 <= mid.shape[0]:
         raise ValueError(f"columns {c0}..{c1} out of range")
@@ -584,19 +586,21 @@ def triples(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor, lane_counts,
     W = len(lane_counts)
     L = int(max(lane_counts)) if W else 0
     S = plan_t["S"]
-    shape = _card_shape(lib, plan_t, L, lanes_per_warp)
+    shape = _card_shape(lib, plan_t, L, lanes_per_warp, layout)
     mid, qs = mid.contiguous(), qs.contiguous()
     offs = _lane_offsets(lane_counts, base, dev)
     trip = torch.empty(((c1 - c0) * L, W), dtype=torch.int64, device=dev)
     resc = torch.zeros(W, dtype=torch.int64, device=dev)
+    scratch = _uses_scratch(shape, W, dev)
     rc = lib.qvz_coder_triples(
         mid.data_ptr(), qs.data_ptr(), mid.shape[1], offs.data_ptr(), W, c0,
         c1 - c0, L, plan_t["mloc"].data_ptr(), plan_t["mtab"].data_ptr(),
         plan_t["col_model_off"].data_ptr(), plan_t["init_counts"].data_ptr(),
         plan_t["init_prefix"].data_ptr(), plan_t["col_slots"].data_ptr(), S,
-        trip.data_ptr(), resc.data_ptr(), shape["lpw"], shape["lpb"],
-        shape["lt"], shape["s_pad"], shape["m_pad"], shape["smem"],
-        _stream(dev))
+        trip.data_ptr(), resc.data_ptr(), shape["layout"],
+        scratch.data_ptr() if scratch is not None else None, shape["lpw"],
+        shape["lpb"], shape["lt"], shape["s_pad"], shape["m_pad"],
+        shape["smem"], _stream(dev))
     _build.check(rc, "lane coder triples kernel")
     _build.LAUNCHES["coder_triples"] += 1
     return trip, resc != 0
@@ -701,10 +705,8 @@ def encode_lanes_raw(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
     (W, max lane count, 3) uint32 are its cluster-id steps, None with one
     cluster. payloads[w] is None where flags[w] is set and the caller
     must re-code that lane on the host. stats, if given, gets the seconds
-    of the device-to-host copy under "d2h" (fenced) and, where K2a's
-    layout does not fit the card, the reason under "fallback_reason"."""
-    raw = code_lanes(plan_t, mid, qs, lane_counts, base, cluster_triples,
-                     stats)
+    of the device-to-host copy under "d2h" (fenced)."""
+    raw = code_lanes(plan_t, mid, qs, lane_counts, base, cluster_triples)
     if mid.device.type == "cuda":
         torch.cuda.synchronize(mid.device)
     t0 = time.perf_counter()

@@ -32,11 +32,14 @@ one row of (l, u, t, consumed bits, flags).
 ``DecodePlan`` is copied from ``qvz_tpu.ops.decoder_device`` (that module
 imports JAX when it loads), without its Mosaic-packed tables, and takes
 from ``coder_device.LanePlan`` the per-column model records that K5 (and
-K2a) stage in shared memory.
+K2a) read.
 
 K5 decodes LANES_PER_WARP lanes in each warp (``lanes_per_warp``; up to 32
 lanes a block): fewer lanes a warp serialise fewer divergent steps and let
-an SM interleave more warps.
+an SM interleave more warps. It takes every plan: where the column's
+tables do not fit a block's shared memory beside one lane's uses, it
+reads them from device memory, and where the uses alone do not fit, keeps
+those there too (``launch_shape``'s layout).
 """
 
 from __future__ import annotations
@@ -49,10 +52,11 @@ import torch
 from qvz_tpu_torch import _build
 from qvz_tpu_torch.device import resolve
 from qvz_tpu_torch.ops.coder_device import (ARITH_M, ARITH_R, FULL,
-                                            MSB_BIT, MSB_CLEAR, MSB_SHIFT,
-                                            SMSB_SHIFT, STEP, U32,
+                                            LAYOUTS, MSB_BIT, MSB_CLEAR,
+                                            MSB_SHIFT, SMSB_SHIFT, STEP, U32,
                                             _bit_length, _lane_offsets,
-                                            _round8, plan_to_torch)
+                                            _round8, _uses_scratch,
+                                            plan_to_torch)
 
 FLAG_BAD, FLAG_RESCALE, FLAG_OVERRUN = 1, 2, 4
 OVERRUN_BYTES = 64       # the host BitReader's margin past the payload
@@ -304,75 +308,79 @@ def _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
 
 
 def launch_shape(S: int, models_max: int, lmax: int, ptab_w: int,
-                 lanes_per_warp: int, smem_limit: int) -> dict:
+                 lanes_per_warp: int, smem_limit: int,
+                 layout: int | None = None) -> dict:
     """K5's block shape and dynamic shared memory for a plan of S slots
     and at most models_max models a column, lanes of at most lmax lines:
     lanes_per_warp lanes decode in each warp, a block holds 32 lanes in
     32 / lanes_per_warp warps, and a chunk of up to 2048 steps; chunk,
     then lanes, shrink until the layout of csrc/decoder.cu fits
-    smem_limit bytes. Raises if even one lane does not fit."""
+    smem_limit bytes. The layout is the first of LAYOUTS in which one
+    lane fits, or `layout` where given (which raises if even one lane
+    does not fit it): 0 stages the column's tables and keeps each lane's
+    uses in shared memory, 1 reads the tables from device memory, 2 keeps
+    the uses there too."""
     if lanes_per_warp not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"lanes_per_warp {lanes_per_warp} is not a power "
                          "of two up to 32")
-    if models_max >= 1 << 15:
-        raise ValueError(f"{models_max} models in a column; K5 takes fewer "
-                         "than 32768")
+    if models_max > 1 << 16:
+        raise ValueError(f"{models_max} models in a column; K5 takes at "
+                         "most 65536")
     s_pad, m_pad = _round8(max(S, 1)), _round8(max(models_max, 1))
+    tables = (m_pad * 8 + s_pad * 4 + ptab_w * 4 + s_pad, 0, 0)
+    uses = ((s_pad + m_pad) * 2,) * 2 + (0,)
 
-    def size(lpb, lt):
-        return (m_pad * 8 + s_pad * 4 + ptab_w * 4 + lpb * s_pad * 2
-                + lpb * m_pad * 2 + lpb * lt * 2 + s_pad + lpb * lt)
+    for lay in LAYOUTS if layout is None else (layout,):
+        def size(lpb, lt):
+            return tables[lay] + lpb * (uses[lay] + lt * 3)
 
-    lpb = _LANES_PER_BLOCK
-    lt = _round8(max(1, min(lmax, _CHUNK_CAP)))
-    while size(lpb, lt) > smem_limit:
-        if lt > 256:
-            lt = max(256, _round8(lt // 2))
-        elif lpb > 1:
-            lpb //= 2
-        elif lt > 8:
-            lt = _round8(lt // 2)
-        else:
-            raise ValueError(f"K5 needs {size(1, 8)} B of shared memory "
-                             f"for S = {S}, more than the card's "
-                             f"{smem_limit} B")
-    return {"lpw": min(lanes_per_warp, lpb), "lpb": lpb, "lt": lt,
-            "s_pad": s_pad, "m_pad": m_pad, "smem": size(lpb, lt)}
+        lpb = _LANES_PER_BLOCK
+        lt = _round8(max(1, min(lmax, _CHUNK_CAP)))
+        while size(lpb, lt) > smem_limit:
+            if lt > 256:
+                lt = max(256, _round8(lt // 2))
+            elif lpb > 1:
+                lpb //= 2
+            elif lt > 8:
+                lt = _round8(lt // 2)
+            else:
+                break
+        if size(lpb, lt) <= smem_limit:
+            return {"lpw": min(lanes_per_warp, lpb), "lpb": lpb, "lt": lt,
+                    "s_pad": s_pad, "m_pad": m_pad, "smem": size(lpb, lt),
+                    "layout": lay}
+    raise ValueError(f"K5's layout {lay} needs {size(1, 8)} B of shared "
+                     f"memory for S = {S}, more than the card's "
+                     f"{smem_limit} B")
 
 
-def _card_shape(lib, dplan_t: dict, lmax: int, lanes_per_warp: int) -> dict:
+def _card_shape(lib, dplan_t: dict, lmax: int, lanes_per_warp: int,
+                layout: int | None = None) -> dict:
     return launch_shape(dplan_t["S"], dplan_t["models_max"], lmax,
                         dplan_t["ptab"].shape[1], lanes_per_warp,
-                        lib.qvz_decoder_smem_limit() - 1024)
+                        lib.qvz_decoder_smem_limit() - 1024, layout)
 
 
-def launch_refusal(dplan_t: dict, lmax: int, device,
-                   lanes_per_warp: int = LANES_PER_WARP) -> str | None:
-    """Why K5 cannot take lanes of at most lmax lines of this plan on
-    `device`, or None: the plain version takes any plan; on a CUDA device
-    ``launch_shape`` must fit the card's shared memory. The caller
-    decodes refused lanes on the host."""
-    if torch.device(device).type != "cuda":
-        return None
-    try:
-        _card_shape(_build.load(), dplan_t, lmax, lanes_per_warp)
-    except ValueError as e:
-        return str(e)
-    return None
+def card_layout(dplan_t: dict, lmax: int) -> int:
+    """The layout K5 takes for lanes of at most lmax lines of this plan on
+    the current card (``launch_shape``)."""
+    return _card_shape(_build.load(), dplan_t, lmax, LANES_PER_WARP)["layout"]
 
 
 def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
                    cl: torch.Tensor | None, lane_counts, base: int,
                    states: torch.Tensor, out: torch.Tensor,
                    sym_add: int = 0, cols_run: int | None = None,
-                   lanes_per_warp: int = LANES_PER_WARP) -> torch.Tensor:
+                   lanes_per_warp: int = LANES_PER_WARP,
+                   layout: int | None = None) -> torch.Tensor:
     """Decode the lanes into the rows of `out` (see the module docstring)
     and return their final states, (W, 5) int64 rows of (l, u, t,
     consumed bits, flags). draws_t: (cols, N) uint8; cl: (N,) uint8 or
     None with one cluster; states: (W, 4) int64 start (l, u, t, consumed
     bits); out: (N, cols or cols + 1) uint8. cols_run stops after that
     many columns. CPU tensors take the plain version; CUDA tensors launch
-    K5 (csrc/decoder.cu), lanes_per_warp lanes in each warp, or raise."""
+    K5 (csrc/decoder.cu), lanes_per_warp lanes in each warp, in `layout`
+    (``launch_shape``'s choice where None), or raise."""
     _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
            cols_run)
     dev = draws_t.device
@@ -398,7 +406,8 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
         flat = torch.zeros(padded, dtype=torch.uint8, device=dev)
         flat[: pays.flat.numel()] = pays.flat
     shape = _card_shape(lib, dplan_t, int(max(lane_counts, default=0)),
-                        lanes_per_warp)
+                        lanes_per_warp, layout)
+    scratch = _uses_scratch(shape, W, dev)
     offs = _lane_offsets(lane_counts, base, dev)
     out_t = torch.empty((max(cols_run, 1), n), dtype=torch.uint8,
                         device=dev)
@@ -415,6 +424,7 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
         dplan_t["init_counts"].data_ptr(), dplan_t["col_slots"].data_ptr(),
         dplan_t["symtab"].data_ptr(), S, states.data_ptr(), out_t.data_ptr(),
         out.data_ptr(), out.shape[1], sym_add, state_out.data_ptr(),
+        shape["layout"], scratch.data_ptr() if scratch is not None else None,
         shape["lpw"], shape["lpb"], shape["lt"], shape["s_pad"],
         shape["m_pad"], shape["smem"], base, hi,
         torch.cuda.current_stream(dev).cuda_stream)

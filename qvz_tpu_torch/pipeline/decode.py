@@ -10,7 +10,8 @@ in seconds, in ``stats["phase_seconds"]`` when the caller passes a dict:
   warmup    the wait for the warmup shard, which a host thread decodes
             meanwhile (primed containers): it gives the lanes' bank
   prologue  the lanes' cluster-id prologue on the host (-c K > 1), and
-            the tables, ids and start states to the device
+            the ids and start states to the device; in the first wave also
+            the decode plan's tables, built once from the warmup bank
   decoder   K5 on the device, fenced
   d2h       the lanes' text rows and final states to the host
   redecode  flagged lanes decoded again on the host
@@ -20,10 +21,9 @@ text fit WAVE_BYTES, one K5 call a wave, so host and device memory stay
 bounded for any file; each phase's seconds add up over the waves. K5
 writes each wave's text rows, symbols + 33 and the newline, straight into
 a device buffer, so the rows need no assembly on the host. ``stats`` also
-gets ``lanes``, ``waves`` and ``fallback_lanes``: the lanes decoded again
-on the host, flagged by K5 or refused by it before the launch where the
-plan's layout does not fit the card (``decoder_device.launch_refusal``),
-with the reason under ``fallback_reason``.
+gets ``lanes``, ``waves`` and ``fallback_lanes``: the lanes K5 flagged,
+decoded again on the host. K5 takes every plan (``launch_shape``'s
+layouts), so no lane goes to the host before a launch.
 
 v1 containers, row-major QVZ2 and single-shard QVZ2 have no lanes: they
 go to the port's host decoder (``pipeline/host.py``), as ``qvz_tpu``
@@ -194,9 +194,10 @@ class _Warmup:
 
 
 def _prepare(compressed, head, tables, out, dev, ph, wave: range,
-             warm: _Warmup) -> Lanes:
+             warm: _Warmup, dplan_t: dict | None = None) -> Lanes:
     """Everything before K5 for the lanes of the shards in `wave`; the
-    phases' seconds add up in `ph`."""
+    phases' seconds add up in `ph`. dplan_t is the decode plan's tables on
+    `dev`, built here from the warmup bank where None."""
     t0 = time.perf_counter()
     cols = head.columns
     shards = [head.shards[i] for i in wave]
@@ -221,9 +222,10 @@ def _prepare(compressed, head, tables, out, dev, ph, wave: range,
     t4 = time.perf_counter()
     _add(ph, "warmup", t4 - t3)
 
-    dplan_t = decoder_device.decode_plan_to_torch(
-        decoder_device.DecodePlan(coder_device.LanePlan(tables, bank),
-                                  tables), dev)
+    if dplan_t is None:
+        dplan_t = decoder_device.decode_plan_to_torch(
+            decoder_device.DecodePlan(coder_device.LanePlan(tables, bank),
+                                      tables), dev)
     cl = None
     if head.cluster_count > 1:
         with ThreadPoolExecutor(max_workers=_workers()) as ex:
@@ -251,21 +253,15 @@ def _decode_lanes(compressed, head, tables, out, dev, st) -> None:
     offs = np.concatenate([[0], np.cumsum([s.lines for s in shards])]
                           ).astype(np.int64)
     waves = _waves(head)
-    host_shards = []                     # flagged or refused lanes' shards
+    host_shards = []                     # the flagged lanes' shards
+    dplan_t = None                       # the same for every wave
     warm = _Warmup(compressed, head, tables, out)
     try:
         for wave in waves:
             lanes = _prepare(compressed, head, tables, out, dev, ph, wave,
-                             warm)
+                             warm, dplan_t)
+            dplan_t = lanes.dplan_t
             t0 = time.perf_counter()
-            why = decoder_device.launch_refusal(
-                lanes.dplan_t, max(lanes.lane_counts), dev)
-            if why is not None:
-                st["fallback_reason"] = why
-                host_shards.extend(wave)
-                _add(ph, "decoder", 0.0)
-                _add(ph, "d2h", 0.0)
-                continue
             rows = torch.from_numpy(out[offs[wave.start]:offs[wave.stop]])
             dst = rows if dev.type == "cpu" else torch.empty(
                 rows.shape, dtype=torch.uint8, device=dev)

@@ -230,7 +230,6 @@ def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
     ph["device_code"] = dv["device_code"] = t1 - t0
     ph["d2h"] = dv["d2h"] = tim["d2h"]
     st.coder_fallback_lanes = int(flags.sum())
-    st.coder_fallback_reason = tim.get("fallback_reason")
 
     for w in np.flatnonzero(flags):
         lo, hi = int(offs[first + w]), int(offs[first + w + 1])

@@ -47,10 +47,8 @@ class EncodeStats:
     # included; phases absent here ran on the host.
     device_seconds: dict = field(default_factory=dict)
     # Device-coder lanes re-coded on the host (a rescaling column model
-    # or an oversize emission, or every lane where the plan's layout does
-    # not fit the device coder, with the reason).
+    # or an oversize emission).
     coder_fallback_lanes: int = 0
-    coder_fallback_reason: str | None = None
 
 
 @dataclass

@@ -317,7 +317,7 @@ def test_lane_coder_kernel_codes_the_cluster_segment():
 
 # ---------------------------------------------------------------------------
 # K2's two parts: the triples (K2a) and the chain (K2b), their plain
-# versions, the column chunks and the layout K2a refuses.
+# versions, the column chunks and K2a's layouts.
 
 
 def _replay_triples(tables, bank, md, qs, lane_counts, base, c0, c1):
@@ -480,45 +480,54 @@ def test_triples_shape_fits(S, models, lmax, lpw, want):
     shape = cd.triples_shape(S, models, lmax, 232_448, 233_472, lpw)
     assert (shape["lpw"], shape["lpb"], shape["lt"],
             shape["lanes_per_sm"]) == want
+    assert shape["layout"] == 0
     assert shape["smem"] + 384 <= 232_448
     assert shape["s_pad"] % 8 == 0 and shape["m_pad"] % 8 == 0
 
 
 def test_triples_shape_refuses():
-    with pytest.raises(ValueError, match="shared memory"):
-        cd.triples_shape(17_100, 7_174, 260, 232_448, 233_472)
+    """A forced layout that cannot hold one lane, and a lanes-a-warp that
+    is not a power of two, raise; nothing else does."""
+    with pytest.raises(ValueError, match="layout 0 .* shared memory"):
+        cd.triples_shape(17_100, 7_174, 260, 232_448, 233_472, layout=0)
+    with pytest.raises(ValueError, match="layout 1 .* shared memory"):
+        cd.triples_shape(200_000, 400, 260, 232_448, 233_472, layout=1)
     with pytest.raises(ValueError, match="power of two"):
         cd.triples_shape(1004, 130, 240, 232_448, 233_472, 3)
-    assert cd.triples_refusal({"S": 10**6, "models_max": 10**6}, 240,
-                              "cpu") is None
 
 
-def test_refused_layout_goes_to_the_host_coder(monkeypatch):
-    """Where K2a's layout does not fit, no lane is coded on the device:
-    every lane comes back flagged, is re-coded on the host and counted, and
-    the container is byte-equal to the host engine's and qvz_tpu's."""
-    from qvz_tpu.pipeline import encode as jenc
-    from qvz_tpu_torch.pipeline import encode as penc
-    from qvz_tpu_torch.pipeline import host as phost
+@pytest.mark.parametrize("S,models,lmax,want", [
+    (17_100, 7_174, 260, (4, 4, 64, 4, 1)),        # -c 150 at 200k x 20
+    (200_000, 400, 260, (4, 32, 64, 256, 2)),      # one lane's uses too big
+    (10**6, 10**5, 150_000, (4, 32, 64, 256, 2)),  # any plan has a layout
+])
+def test_triples_shape_layouts(S, models, lmax, want):
+    """Where the column's tables and one lane's uses do not fit a block
+    together, K2a reads the tables from device memory (layout 1); where
+    one lane's uses alone do not fit, it keeps them there too (layout 2).
+    Every plan has a layout, so K2a takes every plan."""
+    shape = cd.triples_shape(S, models, lmax, 232_448, 233_472)
+    assert (shape["lpw"], shape["lpb"], shape["lt"], shape["lanes_per_sm"],
+            shape["layout"]) == want
+    assert shape["smem"] + 384 <= 232_448
+    assert cd.triples_shape(S, models, lmax, 232_448, 233_472,
+                            layout=shape["layout"]) == shape
 
-    monkeypatch.setattr(cd, "triples_refusal",
-                        lambda plan_t, lmax, device: "no room on the card")
-    n, cols = 900, 7
-    rng = np.random.default_rng(41)
-    data = np.clip(30 + rng.integers(-3, 4, size=(n, cols)).cumsum(1), 0,
-                   71).astype(np.uint8)
-    dist = make_matrix(DISTORTION_MSE)
-    for kw in (dict(n_clusters=1), dict(n_clusters=3)):
-        got = penc.encode(data, dist, well_state=WellState.debug(), shards=5,
-                          prime=False, device="cpu", **kw)
-        assert got.stats.coder_fallback_lanes == 5
-        assert got.stats.coder_fallback_reason == "no room on the card"
-        ref = phost.encode(data, dist, well_state=WellState.debug(),
-                           shards=5, prime=False, **kw)
-        assert got.compressed == ref.compressed
-        assert got.compressed == jenc.encode(
-            data, dist, well_state=WellState.debug(), shards=5, prime=False,
-            use_jax=False, **kw).compressed
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [0, 1, 2])
+def test_triples_kernel_layouts_match_plain(layout):
+    """K2a equals its plain version in each of its layouts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2a has no CPU mode)")
+    tables, md, qs, clusters, bank = _clustered(1003, 7, 3, 31, 100)
+    lane_counts = _lanes(1003, 100, 228)
+    plan_t = cd.plan_to_torch(cd.LanePlan(tables, bank), "cuda")
+    m = torch.from_numpy(md.astype(np.int32)).cuda()
+    q = torch.from_numpy(qs.astype(np.int32)).cuda()
+    got = cd.triples(plan_t, m, q, lane_counts, 100, 1, 7, layout=layout)
+    want = cd.triples_reference(plan_t, m, q, lane_counts, 100, 1, 7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

@@ -477,17 +477,43 @@ def test_launch_shape_fits(S, models, lmax, lpw, want):
     limit = 232_448 - 1024
     shape = dd.launch_shape(S, models, lmax, 216, lpw, limit)
     assert (shape["lpw"], shape["lpb"], shape["lt"]) == want
+    assert shape["layout"] == 0
     assert shape["smem"] <= limit
     assert shape["s_pad"] % 8 == 0 and shape["m_pad"] % 8 == 0
 
 
 def test_launch_shape_refuses():
-    with pytest.raises(ValueError, match="shared memory"):
-        dd.launch_shape(200_000, 400, 260, 216, 8, 231_424)
+    """A forced layout that cannot hold one lane, a lanes-a-warp that is
+    not a power of two and more models a column than a u16 tile entry
+    indexes raise; nothing else does."""
+    with pytest.raises(ValueError, match="layout 0 .* shared memory"):
+        dd.launch_shape(200_000, 400, 260, 216, 8, 231_424, layout=0)
+    with pytest.raises(ValueError, match="layout 1 .* shared memory"):
+        dd.launch_shape(200_000, 400, 260, 216, 8, 231_424, layout=1)
     with pytest.raises(ValueError, match="power of two"):
         dd.launch_shape(1004, 140, 240, 216, 12, 231_424)
     with pytest.raises(ValueError, match="models in a column"):
-        dd.launch_shape(1004, 1 << 15, 240, 216, 8, 231_424)
+        dd.launch_shape(1004, (1 << 16) + 1, 240, 216, 8, 231_424)
+    assert dd.launch_shape(1004, 1 << 15, 240, 216, 8, 231_424)["lpb"] == 2
+
+
+@pytest.mark.parametrize("S,models,lmax,ptab_w,want", [
+    (17_100, 7_174, 260, 150 * 72, (4, 4, 256, 1)),   # -c 150, 200k x 20
+    (200_000, 400, 260, 216, (8, 32, 264, 2)),        # one lane's uses
+    (10**6, 36_720, 150_000, 255 * 72, (8, 32, 2048, 2)),  # -c 255
+])
+def test_launch_shape_layouts(S, models, lmax, ptab_w, want):
+    """Where the column's tables and one lane's uses do not fit a block
+    together, K5 reads the tables from device memory (layout 1); where
+    one lane's uses alone do not fit, it keeps them there too (layout 2).
+    Every plan has a layout, so K5 takes every plan."""
+    limit = 232_448 - 1024
+    shape = dd.launch_shape(S, models, lmax, ptab_w, 8, limit)
+    assert (shape["lpw"], shape["lpb"], shape["lt"],
+            shape["layout"]) == want
+    assert shape["smem"] <= limit
+    assert dd.launch_shape(S, models, lmax, ptab_w, 8, limit,
+                           layout=shape["layout"]) == shape
 
 
 def test_payloads_are_padded_for_wide_loads():
@@ -522,22 +548,26 @@ def test_cuda_lanes_per_warp_agree():
         assert torch.equal(f, fin) and torch.equal(got, want), lpw
 
 
-def test_refused_layout_goes_to_the_host_decoder(monkeypatch):
-    """Where K5's layout does not fit the card, its lanes go to the host
-    decoder before any launch: bytes equal, every lane counted, the reason
-    in the stats."""
-    comp = _encode(_data(900, 8, seed=45), shards=5, n_clusters=3,
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [0, 1, 2])
+def test_cuda_layouts_agree(layout):
+    """K5 on the card gives the plain version's rows and states in each of
+    its layouts."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device is visible")
+    comp = _encode(_data(2000, 6, seed=45), shards=8, n_clusters=3,
                    prime=False)
-    monkeypatch.setattr(dd, "launch_refusal",
-                        lambda dplan_t, lmax, device: "no room on the card")
-    st = {}
-    got = port.decode(comp, device="cpu", stats=st)
-    assert np.array_equal(got, host_decode.decode(comp))
-    assert st["lanes"] == st["fallback_lanes"] == 5
-    assert st["fallback_reason"] == "no room on the card"
-    monkeypatch.undo()
-    assert dd.launch_refusal(port.prepare_lanes(comp, "cpu").dplan_t, 180,
-                             "cpu") is None
+    lanes = port.prepare_lanes(comp, "cuda")
+    n = lanes.draws_t.shape[1]
+    want = torch.zeros((n, 7), dtype=torch.uint8, device="cuda")
+    fin = dd.decode_lanes_reference(lanes.dplan_t, lanes.pays, lanes.draws_t,
+                                    lanes.cl, lanes.lane_counts, 0,
+                                    lanes.starts, want, 33)
+    got = torch.zeros_like(want)
+    f = dd.decode_lanes_t(lanes.dplan_t, lanes.pays, lanes.draws_t, lanes.cl,
+                          lanes.lane_counts, 0, lanes.starts, got, 33,
+                          layout=layout)
+    assert torch.equal(f, fin) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("prime", [False, True], ids=["noprime", "prime"])
@@ -550,9 +580,14 @@ def test_decode_in_waves(small_warmup, monkeypatch, prime):
     want = port.decode(comp, device="cpu", stats=one)
     assert one["waves"] == 1
     monkeypatch.setattr(port, "WAVE_BYTES", 2 * 13 * 250)
+    plans = []
+    to_torch = dd.decode_plan_to_torch
+    monkeypatch.setattr(dd, "decode_plan_to_torch",
+                        lambda *a: plans.append(a) or to_torch(*a))
     st = {}
     got = port.decode(comp, device="cpu", stats=st)
     assert st["waves"] >= 3 and st["lanes"] == one["lanes"]
+    assert len(plans) == 1          # one decode plan serves every wave
     assert st["fallback_lanes"] == 0
     assert np.array_equal(got, want)
     assert np.array_equal(got, host_decode.decode(comp))
