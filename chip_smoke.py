@@ -18,7 +18,8 @@ Phases:
      ptxas report
   2. the input; device statistics (K3, one cluster) checked equal to the
      host C++ counts; codebook design
-  3. K1 against its plain PyTorch version at the full shape: element-equal
+  3. K1 against its plain PyTorch version at the full shape: element-equal,
+     timed in turns with it; its bound from its counted SASS (k1_bound)
   4. K2a (the triples) and K2b (the chain) each against its plain
      version over all 100 columns of the slice's lane plan, one chunk:
      triples and rescale flags element-equal; words, carry and flags
@@ -36,14 +37,19 @@ Phases:
      coder_triples and coder_chain launched by the encode itself
   6. K4, one k-means step at K = 3 from seed_centroids, against its plain
      version (assign, sums and counts equal), also with two identical
-     means (every tie to the lower index); then kmeans_cluster on the
+     means (every tie to the lower index), timed in turns with it, its
+     bound from its counted SASS (k4_bound); at six small and odd
+     shapes (16-read tiles, the 1,022-column ceiling, each of the three
+     places the sums gather) against its plain version; then
+     kmeans_cluster on the
      card against the host C++ rt.kmeans_host: equal assignment, means
      and iteration count
   7. K3 against its plain version and rt.stats_host, with one cluster and
      with the k-means ids of phase 6; torch.bincount over the combined
      (column, cluster*72 + previous, current) index, timed as K3's library
      yardstick (the port never calls it)
-  8. K1 with the k-means ids against its plain version at the full shape
+  8. K1 with the k-means ids against its plain version at the full shape,
+     as in 3
   9. K2a and K2b with the cluster-id segment (K2b's first pass) against
      their plain versions over all columns, as in 4
  10. the end-to-end encode, -c 3 -T 4, median of 3 runs without -u, primed
@@ -84,24 +90,27 @@ Phases:
      decode(device="cuda") byte-equal to the host decoder, K2a and K5
      reading the plan's tables from device memory (layout 1), with hist,
      kmeans, quantize, coder_triples, coder_chain and decoder launched
-     by them and no lane coded or decoded on the host; then K2a and K5 in
-     each layout that holds the plan, device-memory uses (layout 2)
-     included, against their plain versions over all 20 columns
+     by them and no lane coded or decoded on the host; then K4 at K =
+     BIG_K against its plain version (median of 3) and kmeans_cluster at
+     K = BIG_K on the card against rt.kmeans_host, as in 6; K1 against
+     its plain version, as in 3; K2a and K5 in each layout that holds the
+     plan, device-memory uses (layout 2) included, against their plain
+     versions over all 20 columns
 
 Times are CUDA-event times after a warm-up, kernel and plain version
-measured in turns. Each kernel's bound (qvz_tpu_torch.roofline) is the
-larger of its bytes (each input read once, each output written once)
-over 3.35 TB/s and its operations over the card's peak rate: for the
-microbenchmark's kernels the slowest pipe for the SASS of their inner
-loop; for K2a and K2b the slowest pipe for the least instructions of
-each of their loops' trips in their SASS times this run's trips; for K1,
-K3, K4 and K5 an estimated count of int32 instructions over the card's
-issue rate, SMs x 128 x the top SM clock. A kernel faster than
-its bound fails, as does every other check, so the script exits
-non-zero. The last two lines are
-the kernels' JSON record and the result line {"ok": true, "device":
-{...}}. Without a CUDA device, or without the rest of the repository,
-the script fails before it prints any result.
+measured in turns, one call each. Each kernel's bound
+(qvz_tpu_torch.roofline) is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its operations over
+the card's peak rate: for the microbenchmark's kernels the slowest pipe
+for the SASS of their inner loop; for K1, K2a, K2b and K4 the slowest
+pipe for the least instructions of each of their loops' trips in their
+SASS times this run's trips; for K3 and K5 an estimated count of int32
+instructions over the card's issue rate, SMs x 128 x the top SM clock. A
+kernel faster than its bound fails, as does every other check, so the
+script exits non-zero. The last two lines are the kernels' JSON record
+and the result line {"ok": true, "device": {...}}. Without a CUDA
+device, or without the rest of the repository, the script fails before
+it prints any result.
 """
 
 from __future__ import annotations
@@ -136,19 +145,98 @@ def k5_bound(lanes, cols: int, ops_rate: float):
     return bound(nbytes, n * cols * STEP_OPS, ops_rate)
 
 
-def _loop(mb, insns, has: str, inside=None, without=None):
+def _loop(mb, insns, has: str, inside=None, without=None, outside=None):
     """The smallest loop of `insns` (head, end) with an instruction of
-    opcode prefix `has`, none of prefix `without`, nested in `inside`."""
+    opcode `has` (a prefix; a whole opcode where it ends with "$"), none of
+    prefix `without`, nested in `inside` and not in `outside`."""
     spans = [(h, e) for h, e in mb.loop_spans(insns).items()
-             if (inside is None or inside[0] < h <= e <= inside[1])]
+             if (inside is None or inside[0] < h <= e <= inside[1])
+             and (outside is None or not outside[0] <= h <= outside[1])]
+
+    def match(o):
+        return o == has[:-1] if has.endswith("$") else o.startswith(has)
+
     found = []
     for h, e in spans:
         ops = [i[1] for i in insns if h <= i[0] <= e]
-        if any(o.startswith(has) for o in ops) and not (
+        if any(match(o) for o in ops) and not (
                 without and any(o.startswith(without) for o in ops)):
             found.append((h, e))
     require(bool(found), f"a loop with {has} in the SASS")
     return min(found, key=lambda s: s[1] - s[0])
+
+
+def _sass(tag: str):
+    """The SASS of the one function of the kernel library named with
+    `tag`."""
+    from qvz_tpu_torch import microbench as mb
+    funcs = mb.sass_functions()
+    names = [k for k in funcs if tag in k]
+    require(len(names) == 1, f"one {tag} in the library's SASS")
+    return funcs[names[0]]
+
+
+def _pipe_bound(gpu, parts, nbytes: float):
+    """(ms, "bytes" or "operations", pipe, per-pipe instructions) of
+    `parts`, (trips, least trip by pipe) each, and `nbytes`."""
+    from qvz_tpu_torch.roofline import pipe_ms
+    tot = {}
+    for trips, per in parts:
+        for key, v in per.items():
+            tot[key] = tot.get(key, 0) + trips * v
+    t = pipe_ms(gpu, tot, 1, nbytes)
+    pipe = max(t, key=t.get)
+    return t[pipe], "bytes" if pipe == "memory" else "operations", pipe, tot
+
+
+def k4_bound(gpu, shape: dict, n: int, cols: int, k: int):
+    """K4's bound from its counted SASS (the kernel of this shape's kt and
+    mode): each loop's least trip (microbench.trip_min) times this run's
+    trips. The staging, a 16-byte copy a trip: cols x T / 16 a tile; the
+    distances, 4 columns of 4 reads against kt means a trip: T / 4 x
+    ceil(k / kt) x ceil(cols / 4) a tile; the sums, 16 bytes of a column
+    a trip: cols x T / 16 a tile. Bytes: the reads, the assignments, the
+    packed means, the sums and the counts."""
+    from qvz_tpu_torch import microbench as mb
+    f = _sass(f"kmeans_kernelILi{shape['kt']}ELi{shape['mode']}E")
+    T, tiles, kt = shape["T"], shape["tiles"], shape["kt"]
+    g4 = -(-cols // 4)
+    stage = _loop(mb, f, "LDGSTS.E.BYPASS.128")
+    dist = _loop(mb, f, "VABSDIFF4")
+    sums = (_loop(mb, f, "IDP", without="PRMT") if shape["mode"] == 0
+            else _loop(mb, f, "ATOM"))
+    nbytes = n * cols + 4 * n + 4 * g4 * shape["k_pad"] + 8 * k * (cols + 1)
+    return _pipe_bound(gpu, [
+        (tiles * cols * T // 16, mb.trip_min(f, stage[0])),
+        (tiles * T // 4 * -(-k // kt) * g4, mb.trip_min(f, dist[0])),
+        (tiles * cols * T // 16, mb.trip_min(f, sums[0]))], nbytes)
+
+
+def k1_bound(gpu, tabs: dict, n: int, cols: int, clustered: bool):
+    """K1's bound from its counted SASS: each loop's least trip times this
+    run's trips. The column loop, a thread's reads in one column a trip,
+    through the 16-byte stores for the threads whose reads all lie below
+    n: blocks x THREADS x cols; the inputs' staging, a 16-byte copy a
+    trip: 2 x the block's reads / 16 a block and column. Bytes: data and
+    draws in, mid, qs and qv out, the cluster ids, and ctx2, pair_bounds
+    and qsv."""
+    from qvz_tpu_torch import microbench as mb
+    from qvz_tpu_torch.ops import quantize as tq
+
+    f = _sass("quantize_kernel")
+    per_block = tq.BLOCK_READS
+    blocks = -(-n // per_block)
+    col = _loop(mb, f, "BAR")
+    full = n // tq.READS if n % 4 == 0 else 0
+    inputs = _loop(mb, f, "LDGSTS.E.BYPASS.128", inside=col)
+    parts = [(full * cols, mb.trip_min(f, col[0], "STG.E.128")),
+             ((blocks * tq.THREADS - full) * cols, mb.trip_min(f, col[0])),
+             (blocks * cols * 2 * per_block // 16,
+              mb.trip_min(f, inputs[0]))]
+    nbytes = (14 * n * cols + (n if clustered else 0)
+              + sum(int(tabs[key].numel() * tabs[key].element_size())
+                    for key in ("ctx2", "pair_bounds", "qsv")))
+    return _pipe_bound(gpu, parts, nbytes)
 
 
 def coder_bounds(gpu, plan_t, W: int, L: int, n_lines: int, cols: int,
@@ -386,6 +474,111 @@ def max_err(got, want) -> int:
                for a, b in zip(got, want))
 
 
+def k1_phase(torch, tables, data_t, draws_t, ids, gpu, tag: str):
+    """K1 against its plain version at this shape, on the tables of
+    `tables` (an rt.Tables): element-equal, timed in turns with the plain
+    version (median of 5); the bound from its SASS. Returns (result, K1's
+    output)."""
+    from qvz_tpu_torch.ops import quantize as tq
+
+    cols, n = data_t.shape
+    tabs = tq.tables_to_torch(tables, data_t.device, plain=True)
+    got = tq.quantize_t_device(tabs, data_t, draws_t, ids)
+    want = tq.quantize_reference(tabs, data_t, draws_t, ids)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    require(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"{tag} K1 equals its plain version element for element")
+    del want
+    ms, plain_ms, runs, _ = in_turns(
+        lambda: tq.quantize_t_device(tabs, data_t, draws_t, ids),
+        lambda: tq.quantize_reference(tabs, data_t, draws_t, ids), torch)
+    bound = k1_bound(gpu, tabs, n, cols, ids is not None)
+    print(f"{tag} K1 quantize {cols} x {n}, {tabs['n_clusters']} "
+          f"cluster(s), {tabs['max_pairs']} pairs a column at most: equal "
+          f"(max abs err {err}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+          f"(median of 5, in turns; kernel {[round(r, 4) for r in runs]}); "
+          f"bound {bound[0]:.4f} ms ({bound[1]}, {bound[2]}; SASS "
+          f"instructions by pipe {json.dumps(bound[3])})", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}, got
+
+
+def k4_phase(torch, np, data, data_t, K: int, threshold: float, gpu,
+             tag: str, runs: int, host=None) -> dict:
+    """K4 at K means from seed_centroids against its plain version (assign,
+    sums and counts equal), also with means 0 and 1 identical (every tie
+    to the lower index); the kernel (tk.launch, the means packed) timed in
+    turns with the plain version (median of `runs`); the bound from its
+    SASS; then kmeans_cluster on the card against the host C++
+    rt.kmeans_host (`host`, its result where already computed): equal
+    assignment, means and iteration count."""
+    from qvz_tpu_torch.native import runtime as rt
+    from qvz_tpu_torch.ops import kmeans as tk
+    from qvz_tpu_torch.spec.kmeans import seed_centroids
+
+    n, cols = data.shape
+    dev = data_t.device
+    seeds = seed_centroids(data, K).astype(np.int64)
+    err = 0
+    tie = seeds.copy()
+    tie[1] = tie[0]
+    for m in (seeds, tie):
+        m_t = torch.from_numpy(m).to(dev)
+        got = tk.kmeans_step(data_t, m_t)
+        want = tk.kmeans_step_reference(data_t, m_t)
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, want))
+        require(err == 0 and all(torch.equal(a, b)
+                                 for a, b in zip(got, want)),
+                f"{tag} K4 assign, sums and counts equal the plain "
+                "version's")
+    require(int(got[2][1]) == 0 and int(got[2][0]) > 0,
+            f"{tag} K4 with two identical means gives every tie to the "
+            "lower one")
+    shape = tk.card_step_shape(data_t, K)
+    m4 = tk.pack_means(torch.from_numpy(seeds), shape["k_pad"]).to(dev)
+    m_t = torch.from_numpy(seeds).to(dev)
+    def kernel():
+        tk.launch(data_t, m4, K, shape)
+
+    def plain():
+        tk.kmeans_step_reference(data_t, m_t)
+
+    ms, plain_ms, k_runs, p_runs = in_turns(kernel, plain, torch, runs)
+    bound = k4_bound(gpu, shape, n, cols, K)
+    t = time.perf_counter()
+    assign, means, iters = tk.kmeans_cluster(data, K, threshold,
+                                             data_t=data_t)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    t = time.perf_counter()
+    h_assign, h_means, h_iters = host or rt.kmeans_host(data, K, threshold)
+    host_secs = time.perf_counter() - t
+    assign = assign.cpu().numpy()
+    require(np.array_equal(assign, h_assign)
+            and np.array_equal(means, h_means) and iters == h_iters,
+            f"{tag} kmeans_cluster at K = {K} on the card equals "
+            "rt.kmeans_host")
+    sizes = np.bincount(assign, minlength=K)
+    print(f"{tag} K4 k-means step {n} x {cols}, K={K} (tile {shape['T']} "
+          f"reads, mode {shape['mode']}, kt {shape['kt']}, "
+          f"{shape['grid']} blocks): equal (max abs err {err}), ties to the "
+          f"lower index; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms (median of {runs}, in turns; kernel "
+          f"{[round(r, 4) for r in k_runs]}, plain "
+          f"{[round(r, 3) for r in p_runs]}); bound {bound[0]:.4f} ms "
+          f"({bound[1]}, {bound[2]}; SASS instructions by pipe "
+          f"{json.dumps(bound[3])})", flush=True)
+    print(f"{tag} kmeans_cluster K={K} -T {threshold:g}: {iters} iterations "
+          f"(rt.kmeans_host {h_iters}), cluster sizes {sizes.min()}-"
+          f"{sizes.max()}, equal to rt.kmeans_host; {secs:.4f} s on the "
+          f"card ({iters} steps x {ms:.4f} ms = {iters * ms / 1e3:.4f} s of "
+          f"kernel){'' if host else f', {host_secs:.4f} s on the host'}",
+          flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "assign": assign, "iters": iters}
+
+
 def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
     """Phases 6-10: the -c 3 -T 4 path. Returns the kernels' errors and
     times, the encodes' medians and the encodes' kernel launches."""
@@ -394,13 +587,11 @@ def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
     from qvz_tpu_torch.native import runtime as rt
     from qvz_tpu_torch.ops import coder_device as cd
     from qvz_tpu_torch.ops import kmeans as tk
-    from qvz_tpu_torch.ops import quantize as tq
     from qvz_tpu_torch.ops import stats as ts
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
     from qvz_tpu_torch.pipeline import host
     from qvz_tpu_torch.roofline import bound
-    from qvz_tpu_torch.spec.kmeans import seed_centroids
 
     K, T = 3, 4.0
     dev = torch.device("cuda")
@@ -409,51 +600,33 @@ def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
     res = {}
 
     # -- 6. K4 -------------------------------------------------------------
-    seeds = seed_centroids(data, K).astype(np.int64)
-    means = torch.from_numpy(seeds).to(dev)
-    got = tk.kmeans_step(data_t, means)
-    want = tk.kmeans_step_reference(data_t, means)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    require(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)),
-            "K4 assign, sums and counts equal the plain version's")
-    tie = seeds.copy()
-    tie[1] = tie[0]
-    tie_t = torch.from_numpy(tie).to(dev)
-    got = tk.kmeans_step(data_t, tie_t)
-    want = tk.kmeans_step_reference(data_t, tie_t)
-    torch.cuda.synchronize()
-    err = max(err, max_err(got, want))
-    require(all(torch.equal(a, b) for a, b in zip(got, want))
-            and int(got[2][1]) == 0 and int(got[2][0]) > 0,
-            "K4 with two identical means gives every tie to the lower one")
-    k4, k4_plain, k4_runs, k4_plain_runs = in_turns(
-        lambda: tk.kmeans_step(data_t, means),
-        lambda: tk.kmeans_step_reference(data_t, means), torch)
-    t = time.perf_counter()
-    assign_dev, km_means, iters = tk.kmeans_cluster(data, K, T,
-                                                    data_t=data_t)
-    torch.cuda.synchronize()
-    km_secs = time.perf_counter() - t
-    t = time.perf_counter()
-    h_assign, h_means, h_iters = rt.kmeans_host(data, K, T)
-    host_secs = time.perf_counter() - t
-    clusters = assign_dev.cpu().numpy()
-    require(np.array_equal(clusters, h_assign)
-            and np.array_equal(km_means, h_means) and iters == h_iters,
-            "kmeans_cluster on the card equals rt.kmeans_host")
-    sizes = np.bincount(clusters, minlength=K).tolist()
-    res.update(k4_err=err, k4_ms=k4, k4_plain_ms=k4_plain,
-               k4_bound=bound(n * cols + 4 * n + 16 * K * cols + 8 * K,
-                              3 * n * K * cols, rate))
-    print(f"[6] K4 k-means step {n} x {cols}, K={K}: equal (max abs err "
-          f"{err}), ties to the lower index; kernel {k4:.3f} ms, plain "
-          f"{k4_plain:.3f} ms (median of 5, in turns); kernel {k4_runs}, "
-          f"plain {k4_plain_runs}", flush=True)
-    print(f"[6] kmeans_cluster -T {T:g}: {iters} iterations, cluster sizes "
-          f"{sizes}, equal to rt.kmeans_host ({h_iters} iterations); "
-          f"{km_secs:.4f} s on the card, {host_secs:.4f} s on the host",
-          flush=True)
+    k4 = k4_phase(torch, np, data, data_t, K, T, gpu, "[6]", runs=5)
+    # small and odd shapes: 16-read tiles, N not a multiple of 4 or 16,
+    # the 1,022-column ceiling, sums in shared memory (mode 1) and, at the
+    # ceiling with 255 means, in device memory with the means unshared
+    # (mode 2)
+    small = []
+    for sn, sc, sk in ((1037, 100, 3), (4100, 20, 150), (999, 1022, 9),
+                       (8448, 100, 3), (5000, 40, 11), (700, 1022, 255)):
+        sd = torch.from_numpy(np.ascontiguousarray(
+            make_input(sn, sc, sk).T)).to(dev)
+        sm = torch.from_numpy(np.ascontiguousarray(
+            make_input(sk, sc, sn)).astype(np.int64)).to(dev)
+        got = tk.kmeans_step(sd, sm)
+        want = tk.kmeans_step_reference(sd, sm)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"[6] K4 at {sn} x {sc}, K={sk} equals its plain version")
+        shape = tk.card_step_shape(sd, sk)
+        small.append((sn, sc, sk, shape["T"], shape["mode"]))
+    require({s[-1] for s in small} == {0, 1, 2},
+            "[6] the small shapes run K4's three sums modes")
+    print(f"[6] K4 equal to its plain version at (N, cols, K, tile, mode) "
+          f"{small}", flush=True)
+    clusters = k4["assign"]
+    res.update(k4_err=k4["err"], k4_ms=k4["ms"], k4_plain_ms=k4["plain_ms"],
+               k4_bound=k4["bound"], k4_iters=k4["iters"])
+    assign_dev = torch.from_numpy(clusters).to(dev)
 
     # -- 7. K3 -------------------------------------------------------------
     cl_t = assign_dev
@@ -510,22 +683,9 @@ def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
         n, cols, port.device_lane_count(n), True, WellState.debug())
     draws = host._shard_draws(states, counts, cols)
     draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
-    tabs = tq.tables_to_torch(tables, dev)
-    got = tq.quantize_t_device(tabs, data_t, draws_t, cl_t)
-    want = tq.quantize_reference(tabs, data_t, draws_t, cl_t)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    require(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)),
-            "K1 with cluster ids equals its plain version")
-    k1c, k1c_plain, _, _ = in_turns(
-        lambda: tq.quantize_t_device(tabs, data_t, draws_t, cl_t),
-        lambda: tq.quantize_reference(tabs, data_t, draws_t, cl_t), torch)
-    res["k1_err"] = err
-    print(f"[8] K1 quantize with {K} clusters {cols} x {n}: equal (max abs "
-          f"err {err}); kernel {k1c:.3f} ms, plain {k1c_plain:.3f} ms "
-          f"(median of 5, in turns)", flush=True)
-    mid, qs, _ = got
-    del want, draws_t
+    res["k1"], (mid, qs, _) = k1_phase(torch, tables, data_t, draws_t, cl_t,
+                                       gpu, "[8]")
+    del draws_t
 
     # -- 9. K2 with the cluster-id segment -----------------------------------
     w_n = int(counts[0])
@@ -591,7 +751,10 @@ def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
               f"); rate {fast.stats.rate:.4f} distortion "
               f"{fast.stats.distortion:.4f}; host-fallback lanes "
               f"{fast.stats.coder_fallback_lanes}; phases "
-              f"{json.dumps(phases)}", flush=True)
+              f"{json.dumps(phases)}; the cluster phase against its "
+              f"{res['k4_iters']} K4 steps: {phases['cluster'] * 1e3:.3f} "
+              f"ms, {res['k4_iters'] * res['k4_ms']:.3f} ms of kernel",
+              flush=True)
     res["launches"] = dict(_build.LAUNCHES)
     print(f"[10] kernel launches by the -c 3 encodes: {res['launches']}")
     for name in ("hist", "kmeans", "quantize", "coder_triples",
@@ -770,19 +933,20 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
     return res
 
 
-def big_plan_phase(torch, np, dist) -> None:
+def big_plan_phase(torch, np, dist, gpu) -> dict:
     """Phase 16: a plan too large for K5's shared-memory layout. 200,000 x
     20 of the phase-2 generator at -c BIG_K (K5 stages the plan at one
     cluster fewer): the encode and decode(device="cuda") run every lane on
     the card, K2a and K5 reading the plan's tables from device memory;
-    then K2a and K5 in each layout that holds the plan against their plain
-    versions over all columns."""
+    then K4 at K = BIG_K and kmeans_cluster against rt.kmeans_host (as in
+    phase 6), K1 in each layout that holds the plan, and K2a and K5 in
+    each layout that holds the plan against their plain versions over all
+    columns. Returns K1's and K4's errors."""
     from qvz_tpu_torch import _build
     from qvz_tpu_torch.constants import MODE_RATIO
     from qvz_tpu_torch.native import runtime as rt
     from qvz_tpu_torch.ops import coder_device as cd
     from qvz_tpu_torch.ops import decoder_device as dd
-    from qvz_tpu_torch.ops import quantize as tq
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import decode as pdec
     from qvz_tpu_torch.pipeline import encode as port
@@ -793,7 +957,8 @@ def big_plan_phase(torch, np, dist) -> None:
     data = make_input(n, cols, 42)
     fits = {}
     for k in (K - 1, K):
-        cl, _, _ = rt.kmeans_host(data, k, 4.0)
+        km = rt.kmeans_host(data, k, 4.0)
+        cl = km[0]
         c0, cond = rt.stats_host(data, cl, k)
         tables = rt.Design(c0, cond, MODE_RATIO, 0.5, dist).tables()
         dplan_t = dd.decode_plan_to_torch(
@@ -833,8 +998,10 @@ def big_plan_phase(torch, np, dist) -> None:
         n, cols, port.device_lane_count(n), True, WellState.debug())
     draws_t = torch.from_numpy(host._shard_draws(states, counts, cols)).to(
         dev).t().contiguous()
-    mid, qs, _ = tq.quantize_t_device(tq.tables_to_torch(tables, dev), data_t,
-                                      draws_t, torch.from_numpy(cl).to(dev))
+    k4 = k4_phase(torch, np, data, data_t, K, 4.0, gpu, "[16]", runs=3,
+                  host=km)
+    k1, (mid, qs, _) = k1_phase(torch, tables, data_t, draws_t,
+                                torch.from_numpy(cl).to(dev), gpu, "[16]")
     plan_t = cd.plan_to_torch(cd.LanePlan(tables, None), dev)
     lane_counts, base = counts[1:], int(offs[1])
     want = cd.triples_reference(plan_t, mid, qs, lane_counts, base, 0, cols)
@@ -882,6 +1049,7 @@ def big_plan_phase(torch, np, dist) -> None:
           f"to the plain versions: K2a layout 1 {a_ms[1]:.3f} ms, layout 2 "
           f"{a_ms[2]:.3f} ms; K5 layout 1 {k5_ms[1]:.3f} ms, layout 2 "
           f"{k5_ms[2]:.3f} ms (median of 3)", flush=True)
+    return {"k1_err": k1["err"], "k4_err": k4["err"]}
 
 
 def microbench_phase() -> list:
@@ -923,15 +1091,13 @@ def main() -> int:
     from qvz_tpu_torch.constants import DISTORTION_MSE, MODE_RATIO
     from qvz_tpu_torch.native import runtime as rt
     from qvz_tpu_torch.ops import coder_device as cd
-    from qvz_tpu_torch.ops import quantize as tq
     from qvz_tpu_torch.ops import stats as ts
     from qvz_tpu_torch.ops.distortion import make_matrix
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
     from qvz_tpu_torch.pipeline import host
     from qvz_tpu_torch.roofline import (ALU_LANES_PER_SM, FMA_LANES_PER_SM,
-                                        HBM_BYTES_PER_S, SHARED_WORDS_PER_SM,
-                                        bound)
+                                        HBM_BYTES_PER_S, SHARED_WORDS_PER_SM)
     from qvz_tpu_torch.roofline import card as read_card
 
     dev = torch.device("cuda")
@@ -990,37 +1156,10 @@ def main() -> int:
           f"equal the host's", flush=True)
 
     # -- 3. K1 against its plain version ------------------------------------
-    tabs = tq.tables_to_torch(tables, dev)
     data_t = data_dev.t().contiguous()
     draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
-    got = tq.quantize_t_device(tabs, data_t, draws_t)
-    want = tq.quantize_reference(tabs, data_t, draws_t)
-    torch.cuda.synchronize()
-    k1_err = max(int((a.long() - b.long()).abs().max())
-                 for a, b in zip(got, want))
-    require(k1_err == 0 and all(torch.equal(a, b)
-                                for a, b in zip(got, want)),
-            "K1 equals its plain version element for element")
-    k1_ms, k1_plain_ms = [], []
-    for _ in range(5):
-        k1_ms.append(event_ms(
-            lambda: tq.quantize_t_device(tabs, data_t, draws_t), torch))
-        k1_plain_ms.append(event_ms(
-            lambda: tq.quantize_reference(tabs, data_t, draws_t), torch))
-    k1 = statistics.median(k1_ms)
-    k1_plain = statistics.median(k1_plain_ms)
-    # data and draws in, mid, qs and qv (int32) out; about 12 operations
-    # a symbol (context, pair, dither choice, two lookups, stores)
-    k1_bound = bound(14 * n * cols + sum(int(v.numel() * v.element_size())
-                                         for v in tabs.values()
-                                         if torch.is_tensor(v)),
-                     12 * n * cols, rate)
-    print(f"[3] K1 quantize {cols} x {n}: equal (max abs err {k1_err}); "
-          f"kernel {k1:.3f} ms, plain {k1_plain:.3f} ms (median of 5, "
-          f"in turns); kernel {k1_ms}, plain {k1_plain_ms}; bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})", flush=True)
+    k1, got = k1_phase(torch, tables, data_t, draws_t, None, gpu, "[3]")
     mid, qs, _ = got
-    del want
 
     # -- 4. K2a and K2b against their plain versions -------------------------
     w_n = int(counts[0])
@@ -1093,7 +1232,7 @@ def main() -> int:
     mb_kernels = microbench_phase()
 
     # -- 16. a plan too large for K5's shared-memory layout -----------------
-    big_plan_phase(torch, np, dist)
+    big = big_plan_phase(torch, np, dist, gpu)
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -1101,9 +1240,10 @@ def main() -> int:
          "source": "qvz_tpu_torch/csrc/quantize.cu",
          "replaces": "qvz_tpu/ops/quantize_pallas.py:292",
          "launches": launches["quantize"],
-         "max_abs_err": max(k1_err, clus["k1_err"]),
-         "ms": k1, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "max_abs_err": max(k1["err"], clus["k1"]["err"], big["k1_err"]),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
+         "library_ms": None},
         *({"name": name, "route": "cuda",
            "source": "qvz_tpu_torch/csrc/coder.cu",
            "replaces": "qvz_tpu/ops/coder_pallas.py:159",
@@ -1123,7 +1263,8 @@ def main() -> int:
         {"name": "kmeans", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/kmeans.cu",
          "replaces": "qvz_tpu/ops/pallas_kernels.py:33",
-         "launches": launches["kmeans"], "max_abs_err": clus["k4_err"],
+         "launches": launches["kmeans"],
+         "max_abs_err": max(clus["k4_err"], big["k4_err"]),
          "ms": clus["k4_ms"], "plain_ms": clus["k4_plain_ms"],
          "bound_ms": clus["k4_bound"][0], "bound_by": clus["k4_bound"][1],
          "library_ms": None},

@@ -111,8 +111,7 @@ def load() -> ctypes.CDLL:
         build(path)
     lib = ctypes.CDLL(str(path))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.qvz_quantize.argtypes = [p, p, p, i64, i32, p, p, p, p, p,
-                                 p, p, p, p]
+    lib.qvz_quantize.argtypes = [p, p, p, i64, i32, p, p, p, p, p, p, p]
     lib.qvz_quantize.restype = ctypes.c_int
     lib.qvz_coder_smem_limits.argtypes = [p, p]
     lib.qvz_coder_smem_limits.restype = ctypes.c_int
@@ -125,7 +124,8 @@ def load() -> ctypes.CDLL:
     lib.qvz_coder_chain.restype = ctypes.c_int
     lib.qvz_hist.argtypes = [p, p, i64, i32, i32, p, p, p]
     lib.qvz_hist.restype = ctypes.c_int
-    lib.qvz_kmeans_step.argtypes = [p, i64, i32, p, i32, i32, p, p, p, p]
+    lib.qvz_kmeans_step.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32,
+                                    i32, i64, i32, p, p, p]
     lib.qvz_kmeans_step.restype = ctypes.c_int
     lib.qvz_decode_lanes.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32,
                                      p, i32, p, p, p, p, p, p, p, i32, p,
@@ -145,3 +145,13 @@ def load() -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def smem_limits() -> tuple[int, int]:
+    """(shared-memory bytes one block may ask for, bytes one SM holds) on
+    the current card."""
+    block, sm = ctypes.c_int(0), ctypes.c_int(0)
+    check(load().qvz_coder_smem_limits(ctypes.byref(block),
+                                       ctypes.byref(sm)),
+          "shared memory query")
+    return block.value, sm.value

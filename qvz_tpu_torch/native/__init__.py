@@ -76,6 +76,7 @@ def load() -> ctypes.CDLL:
 
     c = ctypes
     u8p = c.POINTER(c.c_uint8)
+    u16p = c.POINTER(c.c_uint16)
     u32p = c.POINTER(c.c_uint32)
     u64p = c.POINTER(c.c_uint64)
     i32p = c.POINTER(c.c_int32)
@@ -121,6 +122,8 @@ def load() -> ctypes.CDLL:
         ("qvz_tables_model_syms", u8p),
         ("qvz_tables_qv_map", u8p),
         ("qvz_tables_qs_map", u8p),
+        ("qvz_tables_ctx2", u32p),
+        ("qvz_tables_qsv", u16p),
     ]:
         fn = getattr(lib, name)
         fn.argtypes = [c.c_void_p]

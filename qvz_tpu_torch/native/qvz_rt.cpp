@@ -1081,6 +1081,11 @@ struct Tables {
   std::vector<uint8_t> model_syms;   // output alphabets, flat
   std::vector<uint8_t> qv_map;       // [n_pairs*2*A] symbol -> quantized
   std::vector<uint8_t> qs_map;       // [n_pairs*2*A] symbol -> state index
+  // The device quantizer's folded forms (qvz_tpu_torch/csrc/quantize.cu):
+  // ctx2 = ctx (0 for an unreachable prev) | qratio[p] << 8, qsv = qs |
+  // qv << 8.
+  std::vector<uint32_t> ctx2;        // [n_clusters*columns*A]
+  std::vector<uint16_t> qsv;         // [n_pairs*2*A]
 };
 
 // Index table with last-wins semantics (pmf.c:365-382).
@@ -1099,8 +1104,24 @@ static void append_quant_tables(Tables* tb, const uint8_t* qmap,
   tb->model_syms.insert(tb->model_syms.end(), out_syms.begin(),
                         out_syms.end());
   for (int i = 0; i < A; ++i) {
+    const uint8_t qs = static_cast<uint8_t>(sym_idx[qmap[i]]);
     tb->qv_map.push_back(qmap[i]);
-    tb->qs_map.push_back(static_cast<uint8_t>(sym_idx[qmap[i]]));
+    tb->qs_map.push_back(qs);
+    tb->qsv.push_back(static_cast<uint16_t>(qs | qmap[i] << 8));
+  }
+}
+
+// ctx2 from the finished ctxmap, pair_base and qratio.
+static void fold_ctx2(Tables* tb) {
+  tb->ctx2.resize(tb->ctxmap.size());
+  for (size_t cc = 0; cc < tb->pair_base.size(); ++cc) {
+    for (int prev = 0; prev < A; ++prev) {
+      const int32_t ctx = std::max(tb->ctxmap[cc * A + prev], 0);
+      const uint64_t p = std::min<uint64_t>(
+          tb->pair_base[cc] + static_cast<uint64_t>(ctx), tb->n_pairs - 1);
+      tb->ctx2[cc * A + prev] =
+          static_cast<uint32_t>(ctx) | uint32_t{tb->qratio[p]} << 8;
+    }
   }
 }
 
@@ -1135,6 +1156,7 @@ static Tables* tables_from_design(
     }
   }
   tb->n_models = static_cast<uint32_t>(tb->model_card.size());
+  fold_ctx2(tb);
   return tb;
 }
 
@@ -1243,6 +1265,7 @@ static Tables* tables_from_blocks(const uint8_t* data, int64_t len,
   }
   tb->n_models = static_cast<uint32_t>(tb->model_card.size());
   tb->consumed = pos;
+  fold_ctx2(tb);
   return tb;
 }
 
@@ -1419,6 +1442,8 @@ uint64_t qvz_tables_bank_words(void* h) {
 }
 const uint8_t* qvz_tables_qv_map(void* h) { return static_cast<Tables*>(h)->qv_map.data(); }
 const uint8_t* qvz_tables_qs_map(void* h) { return static_cast<Tables*>(h)->qs_map.data(); }
+const uint32_t* qvz_tables_ctx2(void* h) { return static_cast<Tables*>(h)->ctx2.data(); }
+const uint16_t* qvz_tables_qsv(void* h) { return static_cast<Tables*>(h)->qsv.data(); }
 
 }  // extern "C"
 

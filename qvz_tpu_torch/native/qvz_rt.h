@@ -44,6 +44,8 @@ const uint64_t* qvz_tables_model_off(void* h);
 const uint8_t* qvz_tables_model_syms(void* h);
 const uint8_t* qvz_tables_qv_map(void* h);
 const uint8_t* qvz_tables_qs_map(void* h);
+const uint32_t* qvz_tables_ctx2(void* h);
+const uint16_t* qvz_tables_qsv(void* h);
 
 // --- batch passes ---------------------------------------------------------
 void qvz_stats(const uint8_t* data, uint64_t n_lines, uint32_t columns,

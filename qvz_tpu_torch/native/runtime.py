@@ -99,6 +99,12 @@ class Tables:
                            (self.n_pairs * 2, ALPHABET_SIZE))
         self.qs_map = view(lib.qvz_tables_qs_map, np.uint8,
                            (self.n_pairs * 2, ALPHABET_SIZE))
+        # the device quantizer's folded forms: ctx2 = the context (0 for
+        # an unreachable prev) | the pair's qratio << 8; qsv = qs | qv << 8
+        self.ctx2 = view(lib.qvz_tables_ctx2, np.uint32,
+                         (n_cols_total, ALPHABET_SIZE))
+        self.qsv = view(lib.qvz_tables_qsv, np.uint16,
+                        (self.n_pairs * 2, ALPHABET_SIZE))
         self.bank_words = int(lib.qvz_tables_bank_words(handle))
 
     def __del__(self):

@@ -40,7 +40,6 @@ must be re-coded on the host; ``encode_lanes_raw`` returns None for it.
 
 from __future__ import annotations
 
-import ctypes
 import time
 
 import numpy as np
@@ -510,12 +509,9 @@ def _card_shape(lib, plan_t: dict, lmax: int,
                 lanes_per_warp: int = LANES_PER_WARP,
                 layout: int | None = None) -> dict:
     """``triples_shape`` on the current card's shared memory."""
-    block, sm = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(lib.qvz_coder_smem_limits(ctypes.byref(block),
-                                           ctypes.byref(sm)),
-                 "shared memory query")
+    block, sm = _build.smem_limits()
     return triples_shape(plan_t["S"], plan_t["models_max"], lmax,
-                         block.value, sm.value, lanes_per_warp, layout)
+                         block, sm, lanes_per_warp, layout)
 
 
 def card_layout(plan_t: dict, lmax: int) -> int:

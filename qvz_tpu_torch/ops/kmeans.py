@@ -6,7 +6,9 @@ minimum wins, integer sums and integer-division means, and the stop rule
 of cluster.c:212-243. Counterpart of ``qvz_tpu.ops.kmeans``; the CUDA
 kernel K4 (``csrc/kmeans.cu``) replaces
 ``qvz_tpu.ops.pallas_kernels._kmeans_kernel``. One Lloyd step runs on the
-device; the convergence loop runs on the host, as in qvz_tpu.
+device; the convergence loop runs on the host, as in qvz_tpu, with one
+upload of the packed means and one copy back of the packed sums and
+counts a step.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ from qvz_tpu_torch.constants import MAX_KMEANS_ITERATIONS
 from qvz_tpu_torch.device import resolve
 from qvz_tpu_torch.spec import kmeans as spec_kmeans
 
-_TILE = 8            # K4 pads the means to a multiple of 8 clusters
+THREADS = 256        # csrc/kmeans.cu kThreads
+READS = 4            # reads a thread in the distance pass (kReads)
+ROW_PAD = 16         # a tile row's stride is T + ROW_PAD bytes (kRowPad)
+TILES = (1024, 512, 256, 128, 64, 32, 16)   # reads a tile, largest first
+MAX_READS_PER_BLOCK = 1 << 23   # u32 accumulators: 2^23 * 255 < 2^32
+SMEM_RESERVED = 1024            # shared memory the card keeps for a block
 
 
 def kmeans_step_reference(data_t: torch.Tensor, means: torch.Tensor):
@@ -50,8 +57,137 @@ def _check(data_t, means):
     lo, hi = torch.aminmax(means)
     if int(lo) < 0 or int(hi) > 255:
         raise ValueError("means must lie in 0..255")
+    if means.shape[0] > 255:
+        raise ValueError("at most 255 clusters (uint8 cluster ids)")
     if data_t.shape[0] * 255 ** 2 >= 2 ** 31:
         raise ValueError("too many columns for int32 distances")
+
+
+def _round(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def layout_bytes(T: int, cols: int, k: int, k_pad: int, kt: int, mode: int,
+                 means_shared: bool) -> int:
+    """Shared memory of one K4 block (csrc/kmeans.cu, Layout): two tiles
+    of cols4 rows of T + ROW_PAD bytes, the packed means if shared, the
+    tile's masks (mode 0, KT x T/4 words) or assignments (T bytes), and in
+    mode 1 the block's (k, cols + 1) u32 sums and counts."""
+    cols4 = _round(cols, 4)
+    marks = 2 * cols4 * (T + ROW_PAD) \
+        + _round(cols4 * k_pad if means_shared else 0, 16)
+    sums = marks + _round(kt * T if mode == 0 else T, 16)
+    return sums + (k * (cols + 1) * 4 if mode == 1 else 0)
+
+
+def step_shape(n: int, cols: int, k: int, smem_block: int, smem_sm: int,
+               sms: int) -> dict:
+    """K4's launch shape for n reads of `cols` columns and k means on a
+    card of `sms` SMs with smem_block bytes of shared memory a block and
+    smem_sm an SM.
+
+    kt: the means a thread's distances hold at once (4 or 8), k_pad: k
+    rounded up to it. mode: where the sums gather, the first that holds:
+    0 in registers (k <= 8, one thread a column, so cols <= THREADS), 1 in
+    shared memory, 2 in device memory; means_shared: the packed means in
+    shared memory where they fit. T: among the tiles of TILES whose
+    layout puts two blocks on an SM (all that fit where none does), the
+    largest that still gives every SM two tiles, else the smallest. The
+    grid walks the ceil(n / T) tiles with at most the blocks the card
+    holds, and at least enough that no block owns more than
+    MAX_READS_PER_BLOCK reads."""
+    kt = 4 if k <= 4 else 8
+    k_pad = _round(k, kt)
+    modes = ([0] if k <= 8 and cols <= THREADS else []) + [1, 2]
+    for mode in modes:
+        for means_shared in (True, False):
+            fits = []
+            for T in TILES:
+                b = layout_bytes(T, cols, k, k_pad, kt, mode, means_shared)
+                if b <= smem_block:
+                    fits.append((T, b, min(2048 // THREADS,
+                                           smem_sm // (b + SMEM_RESERVED))))
+            if fits:
+                fits = [f for f in fits if f[2] >= 2] or fits
+                T, b, per_sm = next(
+                    (f for f in fits if -(-n // f[0]) >= 2 * sms), fits[-1])
+                tiles = -(-n // T)
+                grid = min(tiles, per_sm * sms)
+                grid = max(grid, -(-tiles // (MAX_READS_PER_BLOCK // T)))
+                return {"kt": kt, "k_pad": k_pad, "mode": mode,
+                        "means_shared": means_shared, "T": T, "smem": b,
+                        "blocks_per_sm": per_sm, "grid": grid,
+                        "tiles": tiles}
+    raise ValueError(f"no K4 layout for {cols} columns and {k} means in "
+                     f"{smem_block} B of shared memory")
+
+
+def pack_means(means: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """The means (K, cols) in 0..255 as K4 reads them: (cols4 / 4, k_pad)
+    int32, word (g, j) holding columns 4g..4g+3 of mean j in its bytes,
+    lowest first; the padding columns and means are 0."""
+    k, cols = means.shape
+    cols4 = _round(cols, 4)
+    m = torch.zeros((k_pad, cols4), dtype=torch.long, device=means.device)
+    m[:k, :cols] = means.long()
+    m = m.view(k_pad, cols4 // 4, 4)
+    w = m[..., 0] | m[..., 1] << 8 | m[..., 2] << 16 | m[..., 3] << 24
+    w = torch.where(w >= 2 ** 31, w - 2 ** 32, w)
+    return w.t().to(torch.int32).contiguous()
+
+
+def card_step_shape(data_t: torch.Tensor, k: int) -> dict:
+    """``step_shape`` for the (cols, N) reads `data_t` and k means on the
+    current card."""
+    block, sm = _build.smem_limits()
+    cols, n = data_t.shape
+    return step_shape(n, cols, k, block, sm, torch.cuda.get_device_properties(
+        data_t.device).multi_processor_count)
+
+
+def launch(data_t: torch.Tensor, means4: torch.Tensor, k: int, shape: dict):
+    """K4 on the card: data_t (cols, N) uint8 and means4 (``pack_means``)
+    on one CUDA device, in `shape` (``step_shape``). Returns assign (N,)
+    int32 and (k, cols + 1) int64, the sums and, last, the counts."""
+    if data_t.device.type != "cuda" or not data_t.is_contiguous() \
+            or means4.device != data_t.device or not means4.is_contiguous() \
+            or means4.dtype != torch.int32 \
+            or means4.shape != (-(-data_t.shape[0] // 4), shape["k_pad"]):
+        raise ValueError("K4 takes contiguous (cols, N) reads and packed "
+                         "means on one CUDA device")
+    lib = _build.load()
+    dev = data_t.device
+    cols, n = data_t.shape
+    assign = torch.empty(n, dtype=torch.int32, device=dev)
+    out = torch.zeros((k, cols + 1), dtype=torch.long, device=dev)
+    rc = lib.qvz_kmeans_step(
+        data_t.data_ptr(), n, cols, means4.data_ptr(), k, shape["k_pad"],
+        shape["kt"], shape["mode"], int(shape["means_shared"]), shape["T"],
+        shape["smem"], shape["grid"], assign.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "k-means kernel")
+    _build.LAUNCHES["kmeans"] += 1
+    return assign, out
+
+
+def _step_packed(data_t: torch.Tensor, means: torch.Tensor, shape=None):
+    """One Lloyd step: (assign (N,) int32, (K, cols + 1) int64 with the
+    sums in the first cols columns and the counts in the last). CPU
+    tensors take the plain version; CUDA tensors launch K4 in `shape`
+    (``step_shape`` on this card where None), the means packed on the
+    host and uploaded in one copy, or raise."""
+    dev = data_t.device
+    if dev.type == "cpu":
+        assign, sums, counts = kmeans_step_reference(data_t, means)
+        return assign, torch.cat([sums, counts[:, None]], 1)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    data_t = data_t.contiguous()
+    k = means.shape[0]
+    if shape is None:
+        shape = card_step_shape(data_t, k)
+    means4 = pack_means(means.cpu(), shape["k_pad"]).to(dev)
+    return launch(data_t, means4, k, shape)
 
 
 def kmeans_step(data_t: torch.Tensor, means: torch.Tensor):
@@ -62,31 +198,19 @@ def kmeans_step(data_t: torch.Tensor, means: torch.Tensor):
 
     Returns assign (N,) int32, the first nearest mean of each read; sums
     (K, cols) int64, the symbol sums of each cluster's reads; counts (K,)
-    int64, the cluster sizes. CPU tensors take the plain version; CUDA
-    tensors launch K4 (csrc/kmeans.cu) or raise."""
+    int64, the cluster sizes (both views of one (K, cols + 1) tensor).
+    CPU tensors take the plain version; CUDA tensors launch K4
+    (csrc/kmeans.cu) or raise."""
     _check(data_t, means)
     if data_t.device.type == "cpu":
         return kmeans_step_reference(data_t, means)
-    if data_t.device.type != "cuda":
-        raise ValueError(f"unsupported device {data_t.device}")
-    lib = _build.load()
-    dev = data_t.device
-    data_t = data_t.contiguous()
-    cols, n = data_t.shape
-    k = means.shape[0]
-    k_pad = -(-k // _TILE) * _TILE
-    means_t = torch.zeros((cols, k_pad), dtype=torch.uint8, device=dev)
-    means_t[:, :k] = means.t().to(torch.uint8)
-    assign = torch.empty(n, dtype=torch.int32, device=dev)
-    sums = torch.zeros((k, cols), dtype=torch.long, device=dev)
-    counts = torch.zeros(k, dtype=torch.long, device=dev)
-    rc = lib.qvz_kmeans_step(
-        data_t.data_ptr(), n, cols, means_t.data_ptr(), k, k_pad,
-        assign.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "k-means kernel")
-    _build.LAUNCHES["kmeans"] += 1
-    return assign, sums, counts
+    assign, out = _step_packed(data_t, means)
+    return assign, out[:, :-1], out[:, -1]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """The step's one device-to-host copy."""
+    return t.cpu().numpy()
 
 
 def kmeans_cluster(data: np.ndarray, n_clusters: int, threshold: float,
@@ -114,14 +238,16 @@ def kmeans_cluster(data: np.ndarray, n_clusters: int, threshold: float,
                 data[:1].copy(), 0)
     means = spec_kmeans.seed_centroids(data, n_clusters, rand,
                                        verbose=verbose).astype(np.int64)
+    shape = (card_step_shape(data_t, n_clusters)
+             if data_t.device.type == "cuda" else None)
     assign = None
     iters = 0
     while iters < MAX_KMEANS_ITERATIONS:
-        assign, sums, counts = kmeans_step(
-            data_t, torch.from_numpy(means).to(data_t.device))
+        assign, packed = _step_packed(data_t, torch.from_numpy(means), shape)
         iters += 1
-        new_means = sums.cpu().numpy() // np.maximum(
-            counts.cpu().numpy(), 1)[:, None]
+        packed = _to_host(packed)
+        new_means = packed[:, :cols] // np.maximum(packed[:, cols],
+                                                   1)[:, None]
         diff = (new_means - means).astype(np.float64)
         moved = float((diff * diff).sum(axis=1).max())
         if verbose:

@@ -18,25 +18,49 @@ from qvz_tpu_torch.constants import ALPHABET_SIZE
 from qvz_tpu_torch import _build
 
 
-def tables_to_torch(tables, device) -> dict:
-    """The quantizer tables of an ``rt.Tables`` as tensors on `device`:
-    ctxmap (C*cols*72,) int32 (-1 for an unreachable prev), pair_base
-    (C*cols,) int32, qratio (n_pairs,) uint8, qs_map/qv_map
+THREADS = 512          # csrc/quantize.cu kThreads
+READS = 4              # adjacent reads a thread (kReads)
+BLOCK_READS = THREADS * READS
+
+
+def tables_to_torch(tables, device, plain: bool | None = None) -> dict:
+    """The quantizer tables of an ``rt.Tables`` as tensors on `device`.
+    K1's folded forms, which the runtime builds with the tables: ctx2
+    (C*cols*72,) int32, the context (0 for an unreachable prev) | the
+    pair's qratio << 8; qsv (n_pairs*2*72,) int16, qs | qv << 8;
+    pair_bounds (C*cols + 1,) int32, pair_base and n_pairs; max_pairs,
+    the most pairs a (cluster, column) has. Where `plain` (by default on
+    the CPU, whose wrapper runs the plain version) also the plain
+    version's ctxmap (C*cols*72,) int32 (-1 for an unreachable prev),
+    pair_base (C*cols,) int32, qratio (n_pairs,) uint8 and qs_map/qv_map
     (n_pairs*2*72,) uint8. The arrays are copied: the tensors do not
     alias the C++-owned storage."""
     def t(a, dtype):
+        # one copy, straight into `device` (a clone on the CPU)
         return torch.from_numpy(
-            np.array(a, dtype=dtype, copy=True).reshape(-1)).to(device)
+            np.asarray(a, dtype=dtype).reshape(-1)).to(device, copy=True)
 
-    return {
+    pair_base = np.asarray(tables.pair_base).reshape(-1)
+    n_pairs = int(tables.n_pairs)
+    bounds = np.append(pair_base, n_pairs).astype(np.int32)
+    tabs = {
         "columns": int(tables.columns),
         "n_clusters": int(tables.n_clusters),
-        "ctxmap": t(tables.ctxmap, np.int32),
-        "pair_base": t(tables.pair_base, np.int32),
-        "qratio": t(tables.qratio, np.uint8),
-        "qs_map": t(tables.qs_map, np.uint8),
-        "qv_map": t(tables.qv_map, np.uint8),
+        "ctx2": t(np.asarray(tables.ctx2).view(np.int32), np.int32),
+        "qsv": t(np.asarray(tables.qsv).view(np.int16), np.int16),
+        "pair_bounds": t(bounds, np.int32),
+        "max_pairs": int(np.diff(bounds).max(initial=1)),
     }
+    if plain is None:
+        plain = torch.device(device).type == "cpu"
+    if plain:
+        tabs.update(
+            ctxmap=t(tables.ctxmap, np.int32),
+            pair_base=t(pair_base, np.int32),
+            qratio=t(tables.qratio, np.uint8),
+            qs_map=t(tables.qs_map, np.uint8),
+            qv_map=t(tables.qv_map, np.uint8))
+    return tabs
 
 
 def quantize_reference(tabs: dict, data_t: torch.Tensor,
@@ -83,7 +107,8 @@ def _check(tabs, data_t, draws_t, cluster_ids):
     if data_t.shape[0] != tabs["columns"]:
         raise ValueError(f"{data_t.shape[0]} columns, tables have "
                          f"{tabs['columns']}")
-    ts = [data_t, draws_t, tabs["ctxmap"], tabs["qs_map"]]
+    ts = [data_t, draws_t] + [v for v in tabs.values()
+                              if isinstance(v, torch.Tensor)]
     if cluster_ids is not None:
         if cluster_ids.dtype != torch.uint8 \
                 or cluster_ids.shape != (data_t.shape[1],):
@@ -119,9 +144,8 @@ def quantize_t_device(tabs: dict, data_t: torch.Tensor,
     rc = lib.qvz_quantize(
         data_t.data_ptr(), draws_t.data_ptr(),
         cl.data_ptr() if cl is not None else None, n, cols,
-        tabs["ctxmap"].data_ptr(), tabs["pair_base"].data_ptr(),
-        tabs["qratio"].data_ptr(), tabs["qs_map"].data_ptr(),
-        tabs["qv_map"].data_ptr(), mid.data_ptr(), qs.data_ptr(),
+        tabs["ctx2"].data_ptr(), tabs["pair_bounds"].data_ptr(),
+        tabs["qsv"].data_ptr(), mid.data_ptr(), qs.data_ptr(),
         qv.data_ptr(), torch.cuda.current_stream(data_t.device).cuda_stream)
     _build.check(rc, "quantize kernel")
     _build.LAUNCHES["quantize"] += 1

@@ -64,14 +64,16 @@ print(len(names))
 def _port_files():
     root = pathlib.Path(ROOT)
     return (sorted((root / "qvz_tpu_torch").rglob("*.py"))
-            + [root / "chip_smoke.py",
-               root / "scripts" / "profile_torch_encode.py"])
+            + [root / "chip_smoke.py"]
+            + [root / "scripts" / f for f in (
+                "profile_torch_encode.py", "time_k1_k4.py",
+                "compare_torch_e2e.py")])
 
 
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_qvz_tpu(path):
-    """No port module, nor chip_smoke.py, nor the profile script, imports
+    """No port module, nor chip_smoke.py, nor the port's scripts, imports
     qvz_tpu or qvz_tpu.* (nor JAX), at any depth of the file."""
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

@@ -45,9 +45,10 @@ def _pallas_step(data, means, K):
 
 # (n, cols, K): the geometries of test_pallas.py, among them N not a
 # multiple of the Pallas kernel's 512-row block, and K past one 8-cluster
-# tile of K4
+# tile of K4; K = 150 (phase 16's cluster count, K4's shared-memory sums);
+# N not a multiple of K4's 512-read tile nor of 4 (its byte-wise staging)
 STEP_GEOMS = [(700, 36, 3), (1500, 100, 5), (512, 17, 2), (100, 12, 2),
-              (650, 20, 11)]
+              (650, 20, 11), (700, 20, 150), (1037, 100, 3)]
 
 
 @pytest.mark.parametrize("geom", STEP_GEOMS,
@@ -58,11 +59,112 @@ def test_kmeans_step_matches_pallas_and_oracle(geom):
     data = rng.integers(0, 72, size=(n, cols)).astype(np.uint8)
     means = rng.integers(0, 72, size=(K, cols)).astype(np.int32)
     got = _port_step(data, means)
-    for name, a, b, c in zip(("assign", "sums", "counts"), got,
-                             oracle_step(data, means, K),
-                             _pallas_step(data, means, K)):
+    for name, a, b in zip(("assign", "sums", "counts"), got,
+                          oracle_step(data, means, K)):
         assert np.array_equal(a, b), name
-        assert np.array_equal(a, c), name
+    if K <= 128:
+        for name, a, c in zip(("assign", "sums", "counts"), got,
+                              _pallas_step(data, means, K)):
+            assert np.array_equal(a, c), name
+    else:
+        # the Pallas kernel holds at most 128 means (its lane width);
+        # above that qvz_tpu's XLA step: the assignment and the new means
+        assign, new_means, _ = jx_kmeans._kmeans_step(
+            jnp.asarray(data), jnp.asarray(means), K)
+        assert np.array_equal(got[0], np.asarray(assign))
+        assert np.array_equal(got[1] // np.maximum(got[2], 1)[:, None],
+                              np.asarray(new_means))
+
+
+# An H100's limits: shared memory a block may ask for and an SM holds, SMs
+H100 = (232_448, 233_472, 132)
+
+
+@pytest.mark.parametrize("geom,want", [
+    ((1_000_000, 100, 3), dict(kt=4, k_pad=4, mode=0, means_shared=True,
+                               T=512, blocks_per_sm=2, grid=264)),
+    ((200_000, 20, 150), dict(kt=8, k_pad=152, mode=1, means_shared=True,
+                              T=512, grid=391)),
+    ((4_100, 20, 150), dict(mode=1, T=16, grid=257)),
+    ((1_000_000, 1022, 3), dict(kt=4, k_pad=4, mode=1, means_shared=True)),
+    ((1_000_000, 1022, 255), dict(kt=8, k_pad=256, mode=2,
+                                  means_shared=False)),
+], ids=["1Mx100k3", "200kx20k150", "4100x20k150", "1Mx1022k3",
+        "1Mx1022k255"])
+def test_step_shape(geom, want):
+    """K4's tile and layout: registers for the main path's K = 3, shared
+    sums at K = 150, and the 1,022-column ceiling still fits the card;
+    the largest tile that gives every SM two tiles, the smallest where
+    none does (a small N)."""
+    n, cols, k = geom
+    got = tkm.step_shape(n, cols, k, *H100)
+    assert {key: got[key] for key in want} == want
+    assert got["smem"] == tkm.layout_bytes(
+        got["T"], cols, k, got["k_pad"], got["kt"], got["mode"],
+        got["means_shared"]) <= H100[0]
+    assert got["T"] % 16 == 0 and got["T"] <= tkm.THREADS * tkm.READS
+    # two tiles of cols rows (padded to 4) in the layout
+    assert got["smem"] >= 2 * -(-cols // 4) * 4 * (got["T"] + tkm.ROW_PAD)
+    assert got["tiles"] == -(-n // got["T"])
+    assert got["grid"] <= got["tiles"]
+    assert -(-got["tiles"] // got["grid"]) * got["T"] \
+        <= tkm.MAX_READS_PER_BLOCK
+    if got["blocks_per_sm"] >= 2:
+        assert 2 * (got["smem"] + tkm.SMEM_RESERVED) <= H100[1]
+    if got["tiles"] >= 2 * H100[2] and got["T"] < tkm.TILES[0]:
+        # the next larger tile would leave an SM fewer than two tiles,
+        # or fit fewer than two blocks an SM
+        big = 2 * got["T"]
+        b = tkm.layout_bytes(big, cols, k, got["k_pad"], got["kt"],
+                             got["mode"], got["means_shared"])
+        assert -(-n // big) < 2 * H100[2] or b > H100[0] \
+            or H100[1] // (b + tkm.SMEM_RESERVED) < 2
+
+
+def test_step_shape_caps_reads_per_block():
+    """A block's u32 accumulators hold at most 2^23 reads: a larger N
+    gets more blocks than the card holds at once."""
+    got = tkm.step_shape(2 ** 34, 4, 3, *H100)
+    assert -(-got["tiles"] // got["grid"]) * got["T"] \
+        <= tkm.MAX_READS_PER_BLOCK
+    assert got["grid"] > got["blocks_per_sm"] * H100[2]
+
+
+@pytest.mark.parametrize("k,cols", [(3, 100), (150, 20), (5, 7)])
+def test_pack_means_layout_and_distances(k, cols):
+    """pack_means: word (g, j) holds columns 4g..4g+3 of mean j, lowest
+    byte first, padding 0; the kernel's form of the distance (per 4
+    columns, sum of squared byte differences of a read's word and a mean's
+    word) equals the direct squared distance, padding included."""
+    rng = np.random.default_rng(k)
+    means = rng.integers(0, 256, size=(k, cols))
+    kt = 4 if k <= 4 else 8
+    k_pad = -(-k // kt) * kt
+    w = tkm.pack_means(torch.from_numpy(means), k_pad).numpy()
+    cols4 = -(-cols // 4) * 4
+    assert w.shape == (cols4 // 4, k_pad) and w.dtype == np.int32
+    b = w.view(np.uint32)[..., None] >> (8 * np.arange(4)) & 0xff
+    unpacked = b.transpose(1, 0, 2).reshape(k_pad, cols4)
+    assert np.array_equal(unpacked[:k, :cols], means)
+    assert not unpacked[k:].any() and not unpacked[:, cols:].any()
+    reads = rng.integers(0, 256, size=(50, cols))
+    padded = np.zeros((50, cols4), np.int64)
+    padded[:, :cols] = reads
+    xb = padded.reshape(50, cols4 // 4, 4)
+    mb = unpacked.reshape(k_pad, cols4 // 4, 4)
+    dist = ((xb[:, None] - mb[None]) ** 2).sum((2, 3))[:, :k]
+    direct = ((reads[:, None, :] - means[None]) ** 2).sum(-1)
+    assert np.array_equal(dist, direct)
+
+
+def test_launch_takes_only_card_tensors():
+    """K4's bare launch has no CPU path: a CPU tensor raises before any
+    library is loaded."""
+    d = torch.zeros((8, 64), dtype=torch.uint8)
+    m4 = tkm.pack_means(torch.zeros((3, 8), dtype=torch.long), 4)
+    shape = tkm.step_shape(64, 8, 3, *H100)
+    with pytest.raises(ValueError):
+        tkm.launch(d, m4, 3, shape)
 
 
 def test_kmeans_step_ties_break_low():
@@ -130,6 +232,31 @@ def test_kmeans_cluster_matches_qvz_tpu(case, capsys):
     assert "Total number of iterations" in out
 
 
+def test_kmeans_cluster_one_copy_back_a_step(monkeypatch):
+    """Each Lloyd step copies one packed (K, cols + 1) buffer to the host:
+    the sums, and the counts in the last column."""
+    data = _reads(900, 24, seed=900)
+    fetched = []
+    to_host = tkm._to_host
+
+    def spy(t):
+        out = to_host(t)
+        fetched.append(out)
+        return out
+
+    monkeypatch.setattr(tkm, "_to_host", spy)
+    assign, means, iters = tkm.kmeans_cluster(data, 4, 0.0, device="cpu")
+    assert len(fetched) == iters > 1
+    assert all(f.shape == (4, 25) and f.dtype == np.int64 for f in fetched)
+    last = fetched[-1]
+    assert last[:, 24].sum() == 900
+    a = assign.numpy()
+    assert np.array_equal(last[:, 24], np.bincount(a, minlength=4))
+    sums = np.zeros((4, 24), np.int64)
+    np.add.at(sums, a, data.astype(np.int64))
+    assert np.array_equal(last[:, :24], sums)
+
+
 def test_kmeans_cluster_one_cluster():
     data = _reads(50, 6, seed=1)
     assign, means, iters = tkm.kmeans_cluster(data, 1, 4.0, device="cpu")
@@ -145,6 +272,41 @@ def test_kmeans_cluster_uses_the_given_device_copy():
         data, 3, 4.0, data_t=torch.from_numpy(np.ascontiguousarray(data.T)))
     assert torch.equal(want[0], got[0])
     assert np.array_equal(want[1], got[1]) and want[2] == got[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(200_000, 20, 150), (1037, 100, 3),
+                                  (999, 1022, 9), (700, 1022, 255)],
+                         ids=["200kx20k150", "1037x100k3", "999x1022k9",
+                              "700x1022k255"])
+def test_kmeans_kernel_layouts(geom):
+    """K4 in its shared-sums layout (K = 150), at N not a multiple of 4,
+    at the column ceiling, and there with 255 means (sums in device
+    memory, the means unshared), against the plain step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 has no CPU mode)")
+    n, cols, K = geom
+    data = _reads(n, cols, seed=K)
+    means = data[np.linspace(0, n - 1, K).astype(int)].astype(np.int32)
+    want = _port_step(data, means)
+    got = tkm.kmeans_step(
+        torch.from_numpy(np.ascontiguousarray(data.T)).cuda(),
+        torch.from_numpy(means).cuda())
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert np.array_equal(a, b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_kmeans_cluster_on_card_matches_host():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 has no CPU mode)")
+    data = _reads(20_000, 20, seed=5)
+    for K in (3, 150):
+        assign, means, iters = tkm.kmeans_cluster(data, K, 4.0)
+        h = rt.kmeans_host(data, K, 4.0)
+        assert np.array_equal(assign.cpu().numpy(), h[0])
+        assert np.array_equal(means, h[1]) and iters == h[2]
 
 
 @pytest.mark.cuda
