@@ -34,7 +34,9 @@ Phases:
      pure C++, held byte-equal to qvz_tpu's by the CPU tests) for the same
      shards, priming and seed; decoded by the host decoder to the
      port's reconstruction; -s figures equal; hist, quantize,
-     coder_triples and coder_chain launched by the encode itself
+     coder_triples and coder_chain launched by the encode itself; the
+     encode's stats phase split into K3 (CUDA events) and the counts'
+     copy to the host
   6. K4, one k-means step at K = 3 from seed_centroids, against its plain
      version (assign, sums and counts equal), also with two identical
      means (every tie to the lower index), timed in turns with it, its
@@ -44,10 +46,18 @@ Phases:
      kmeans_cluster on the
      card against the host C++ rt.kmeans_host: equal assignment, means
      and iteration count
-  7. K3 against its plain version and rt.stats_host, with one cluster and
-     with the k-means ids of phase 6; torch.bincount over the combined
-     (column, cluster*72 + previous, current) index, timed as K3's library
-     yardstick (the port never calls it)
+  7. K3 against its plain version and rt.stats_host at C = 1 and with
+     the k-means ids of phase 6 (C = 3), on the input and on its copy
+     binned to the four Phred values of a NovaSeq (2, 12, 23, 37), each
+     timed in turns with the plain version; its bound from its counted
+     SASS (k3_bound), and the outputs' zeroing (two torch.zeros in the
+     call, not K3) timed apart; at ten odd shapes (one read, one and two
+     columns, ragged N, C = 11 and 12 on each side of the shared-memory
+     layout, C = 255, ids at or past C in each mode, which K3 does not
+     count) against its plain version over the reads it counts;
+     torch.bincount over the combined (column, cluster*72 + previous,
+     current) index at C = 1 and 3, timed as K3's library yardstick (the
+     port never calls it)
   8. K1 with the k-means ids against its plain version at the full shape,
      as in 3
   9. K2a and K2b with the cluster-id segment (K2b's first pass) against
@@ -92,7 +102,10 @@ Phases:
      kmeans, quantize, coder_triples, coder_chain and decoder launched
      by them and no lane coded or decoded on the host; then K4 at K =
      BIG_K against its plain version (median of 3) and kmeans_cluster at
-     K = BIG_K on the card against rt.kmeans_host, as in 6; K1 against
+     K = BIG_K on the card against rt.kmeans_host, as in 6; K3 at C =
+     BIG_K (its counters in device memory) against its plain version and
+     rt.stats_host, timed in turns with the plain version, its bound
+     from its counted SASS; K1 against
      its plain version, as in 3; K2a and K5 in each layout that holds the
      plan, device-memory uses (layout 2) included, against their plain
      versions over all 20 columns
@@ -102,9 +115,9 @@ measured in turns, one call each. Each kernel's bound
 (qvz_tpu_torch.roofline) is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 the card's peak rate: for the microbenchmark's kernels the slowest pipe
-for the SASS of their inner loop; for K1, K2a, K2b and K4 the slowest
-pipe for the least instructions of each of their loops' trips in their
-SASS times this run's trips; for K3 and K5 an estimated count of int32
+for the SASS of their inner loop; for K1, K2a, K2b, K3 and K4 the
+slowest pipe for the least instructions of each of their loops' trips in
+their SASS times this run's trips; for K5 still an estimated count of int32
 instructions over the card's issue rate, SMs x 128 x the top SM clock. A
 kernel faster than its bound fails, as does every other check, so the
 script exits non-zero. The last two lines are the kernels' JSON record
@@ -210,6 +223,41 @@ def k4_bound(gpu, shape: dict, n: int, cols: int, k: int):
         (tiles * cols * T // 16, mb.trip_min(f, stage[0])),
         (tiles * T // 4 * -(-k // kt) * g4, mb.trip_min(f, dist[0])),
         (tiles * cols * T // 16, mb.trip_min(f, sums[0]))], nbytes)
+
+
+def k3_bound(gpu, shape: dict, n: int, cols: int, c: int):
+    """K3's bound from its counted SASS (the kernel of this shape's
+    mode): each loop's least trip (microbench.trip_min) times this
+    run's trips, a shared atomic one shared word. Mode 0 zeroes and then
+    flushes its shared counters, a 16-byte word a trip: (nbands x C x 72
+    + pairs x C x 5,184) / 4 a slice; the rounds, a group of 16 reads a
+    thread, and within them the column loop, one pair of the band a trip
+    through its increments: the rounds' thread-trips x nbands and x
+    pairs. Bytes: each column once, the ids once, the counts written once
+    (their zeroing, two torch.zeros of their own in the call, is timed
+    apart in phase 7)."""
+    from qvz_tpu_torch import microbench as mb
+    from qvz_tpu_torch.ops import stats as ts
+
+    f = _sass(f"hist_kernelILb{shape['mode']}EE")
+    pairs = cols - 1
+    thr, step = shape["threads"], ts.GROUP * shape["threads"]
+    rounds = sum(-(-min(shape["slice"], n - s * shape["slice"]) // step)
+                 for s in range(shape["nslices"])) * thr
+    inc = "ATOMS" if shape["mode"] == 0 else "REDG"
+    cols_loop = _loop(mb, f, inc)
+    outer = min(((h, e) for h, e in mb.loop_spans(f).items()
+                 if h < cols_loop[0] and cols_loop[1] <= e),
+                key=lambda s: s[1] - s[0])
+    parts = [(rounds * shape["nbands"], mb.trip_min(f, outer[0])),
+             (rounds * pairs, mb.trip_min(f, cols_loop[0], inc))]
+    if shape["mode"] == 0:
+        words4 = shape["nslices"] * (shape["nbands"] * c * 72
+                                     + pairs * c * ts.BINS) // 4
+        parts += [(words4, mb.trip_min(f, _loop(mb, f, "STS.128")[0])),
+                  (words4, mb.trip_min(f, _loop(mb, f, "LDS.128")[0]))]
+    out = 8 * (c * 72 + c * pairs * ts.BINS)
+    return _pipe_bound(gpu, parts, n * cols + (n if c > 1 else 0) + out)
 
 
 def k1_bound(gpu, tabs: dict, n: int, cols: int, clustered: bool):
@@ -579,7 +627,131 @@ def k4_phase(torch, np, data, data_t, K: int, threshold: float, gpu,
             "assign": assign, "iters": iters}
 
 
-def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
+def binned(data):
+    """Each symbol to the nearest of the four Phred values a NovaSeq's
+    RTA3 bins qualities to (2, 12, 23, 37; the lower on a tie)."""
+    import numpy as np
+    nova = np.array([2, 12, 23, 37], np.int16)
+    return nova[np.abs(data[..., None].astype(np.int16) - nova).argmin(-1)
+                ].astype(np.uint8)
+
+
+def k3_phase(torch, np, data, data_t, ids, ids_h, K: int, gpu) -> dict:
+    """Phase 7: K3 against its plain version and rt.stats_host at C = 1
+    and C = K (the k-means ids), on the Illumina-like input and on its
+    NovaSeq-binned copy, each timed in turns with the plain version
+    (median of 5); its bound from its counted SASS, and the zeroing of
+    its outputs (two torch.zeros) timed alone; at odd shapes against the
+    plain version; torch.bincount over the combined index at
+    C = 1 and C = K, K3's library yardstick (the port never calls it)."""
+    from qvz_tpu_torch.native import runtime as rt
+    from qvz_tpu_torch.ops import stats as ts
+
+    n, cols = data.shape
+    dev = data_t.device
+    A = 72
+    res = {"err": 0, "ms": {}, "plain_ms": {}, "zero_ms": {}, "lib_ms": {},
+           "bound": {}}
+    inputs = (("illumina", data, data_t),
+              ("binned", binned(data), None))
+    for name, d, d_t in inputs:
+        if d_t is None:
+            d_t = torch.from_numpy(np.ascontiguousarray(d.T)).to(dev)
+        for c, cl, cl_h in ((1, None, None), (K, ids, ids_h)):
+            key = f"{name} C={c}"
+            got = ts.conditional_counts_t(d_t, cl, c)
+            want = ts.conditional_counts_reference(d_t, cl, c)
+            torch.cuda.synchronize()
+            counts_h = rt.stats_host(d, cl_h, c)
+            err = max_err(got, want)
+            res["err"] = max(res["err"], err)
+            require(err == 0 and all(torch.equal(a, b)
+                                     for a, b in zip(got, want))
+                    and all(np.array_equal(a.cpu().numpy(), b)
+                            for a, b in zip(got, counts_h)),
+                    f"[7] K3 {key} equals its plain version and "
+                    "rt.stats_host")
+            del got, want, counts_h
+            shape = ts.card_hist_shape(d_t, c)
+            ms, plain_ms, k_runs, _ = in_turns(
+                lambda: ts.conditional_counts_t(d_t, cl, c),
+                lambda: ts.conditional_counts_reference(d_t, cl, c), torch)
+            res["ms"][key], res["plain_ms"][key] = ms, plain_ms
+            if name == "illumina":
+                res["bound"][c] = k3_bound(gpu, shape, n, cols, c)
+                size = c * A + c * (cols - 1) * A * A
+                res["zero_ms"][c] = statistics.median(event_ms(
+                    lambda: (torch.zeros((c, A), dtype=torch.long,
+                                         device=dev),
+                             torch.zeros((c, cols - 1, A, A),
+                                         dtype=torch.long, device=dev)),
+                    torch) for _ in range(5))
+            print(f"[7] K3 {cols} x {n} {key} (mode {shape['mode']}, band "
+                  f"{shape['band']}, {shape['nbands']} x {shape['nslices']} "
+                  f"blocks of {shape['threads']}): equal to the plain "
+                  f"version and rt.stats_host (max abs err {err}); kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms (median of 5, in "
+                  f"turns; kernel {[round(r, 4) for r in k_runs]})"
+                  + (f"; the outputs' zeroing (two torch.zeros, "
+                     f"{8 * size / 1e6:.1f} MB, inside the call) "
+                     f"{res['zero_ms'][c]:.4f} ms alone (median of 5)"
+                     f"; bound {res['bound'][c][0]:.4f} ms "
+                     f"({res['bound'][c][1]}, {res['bound'][c][2]}; SASS "
+                     f"instructions by pipe {json.dumps(res['bound'][c][3])}"
+                     ")" if name == "illumina" else ""), flush=True)
+            if name == "illumina":
+                # the library yardstick: one torch.bincount over the
+                # combined (column, cluster*72 + previous, current) index,
+                # built outside the timing
+                q = (cl.long() if cl is not None
+                     else torch.zeros(n, dtype=torch.long, device=dev))
+                idx = ((q * A + d_t[:-1].long()) * A + d_t[1:].long()
+                       + torch.arange(cols - 1, device=dev)[:, None]
+                       * (c * A * A)).reshape(-1)
+                size = (cols - 1) * c * A * A
+                lib = torch.bincount(idx, minlength=size)
+                require(torch.equal(lib.reshape(cols - 1, c, A, A).permute(
+                    1, 0, 2, 3), ts.conditional_counts_t(d_t, cl, c)[1]),
+                    f"[7] torch.bincount gives K3's counts at C={c}")
+                res["lib_ms"][c] = statistics.median(event_ms(
+                    lambda: torch.bincount(idx, minlength=size), torch)
+                    for _ in range(5))
+                print(f"[7] torch.bincount over the combined index, C={c}: "
+                      f"{res['lib_ms'][c]:.3f} ms (median of 5), equal to "
+                      "K3", flush=True)
+                del q, idx, lib
+        del d_t
+    # odd shapes against the plain version over the reads K3 counts; a
+    # ragged N takes the 4-byte or byte loads; `bad` reads get an id at or
+    # past C, which K3 does not count
+    rng = np.random.default_rng(7)
+    odd = []
+    for sn, sc, sk, bad in ((1, 1, 1, 0), (1037, 1, 3, 0), (4099, 2, 1, 0),
+                            (5000, 100, 11, 0), (5000, 100, 12, 0),
+                            (3000, 30, 255, 0), (3001, 7, 2, 0),
+                            (4100, 33, 5, 0), (3001, 7, 2, 40),
+                            (2000, 9, 12, 40)):
+        sd = torch.from_numpy(np.ascontiguousarray(
+            make_input(sn, sc, sn).T)).to(dev)
+        sq_h = rng.integers(0, sk, sn).astype(np.uint8)
+        sq_h[rng.choice(sn, bad, replace=False)] = rng.integers(sk, 256, bad)
+        keep = torch.from_numpy(sq_h < sk).to(dev)
+        sq = torch.from_numpy(sq_h).to(dev)
+        want = ts.conditional_counts_reference(sd[:, keep], sq[keep], sk)
+        got = ts.conditional_counts_t(sd, sq, sk)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"[7] K3 at {sn} x {sc}, C={sk}, {bad} ids out of range, "
+                "equals its plain version over the reads it counts")
+        odd.append((sn, sc, sk, bad, ts.card_hist_shape(sd, sk)["mode"]))
+    require({o[4] for o in odd if o[3]} == {0, 1}, "[7] the odd shapes "
+            "run both of K3's modes with ids out of range")
+    print(f"[7] K3 equal to its plain version at (N, cols, C, ids out of "
+          f"range, mode) {odd}", flush=True)
+    return res
+
+
+def clustered_phases(torch, np, data, dist, gpu) -> dict:
     """Phases 6-10: the -c 3 -T 4 path. Returns the kernels' errors and
     times, the encodes' medians and the encodes' kernel launches."""
     from qvz_tpu_torch import _build
@@ -591,7 +763,6 @@ def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
     from qvz_tpu_torch.pipeline import host
-    from qvz_tpu_torch.roofline import bound
 
     K, T = 3, 4.0
     dev = torch.device("cuda")
@@ -629,51 +800,9 @@ def clustered_phases(torch, np, data, dist, gpu, rate) -> dict:
     assign_dev = torch.from_numpy(clusters).to(dev)
 
     # -- 7. K3 -------------------------------------------------------------
+    res["k3"] = k3_phase(torch, np, data, data_t, assign_dev, clusters, K,
+                         gpu)
     cl_t = assign_dev
-    err = 0
-    k3_times = {}
-    for c, ids, ids_h in ((1, None, None), (K, cl_t, clusters)):
-        got = ts.conditional_counts_t(data_t, ids, c)
-        want = ts.conditional_counts_reference(data_t, ids, c)
-        torch.cuda.synchronize()
-        counts_h = rt.stats_host(data, ids_h, c)
-        err = max(err, max_err(got, want))
-        require(all(torch.equal(a, b) for a, b in zip(got, want))
-                and all(np.array_equal(a.cpu().numpy(), b)
-                        for a, b in zip(got, counts_h)),
-                f"K3 with {c} clusters equals its plain version and "
-                "rt.stats_host")
-        k3_times[c] = in_turns(
-            lambda: ts.conditional_counts_t(data_t, ids, c),
-            lambda: ts.conditional_counts_reference(data_t, ids, c), torch)
-        print(f"[7] K3 histograms {cols} x {n}, C={c}: equal to the plain "
-              f"version and rt.stats_host (max abs err {err}); kernel "
-              f"{k3_times[c][0]:.3f} ms, plain {k3_times[c][1]:.3f} ms "
-              f"(median of 5, in turns); kernel {k3_times[c][2]}, plain "
-              f"{k3_times[c][3]}", flush=True)
-    res.update(k3_err=err, k3_ms=k3_times[K][0], k3_plain_ms=k3_times[K][1],
-               k3_c1_ms=k3_times[1][0], k3_c1_plain_ms=k3_times[1][1])
-    # the library yardstick: one torch.bincount over the combined
-    # (column, cluster*72 + previous, current) index (the port never calls
-    # it); the index is built outside the timing
-    A = 72
-    idx = ((cl_t.long() * A + data_t[:-1].long()) * A + data_t[1:].long()
-           + torch.arange(cols - 1, device=dev)[:, None] * (K * A * A)
-           ).reshape(-1)
-    lib_cond = torch.bincount(idx, minlength=(cols - 1) * K * A * A)
-    k3_cond = ts.conditional_counts_t(data_t, cl_t, K)[1]
-    require(torch.equal(lib_cond.reshape(cols - 1, K, A, A).permute(
-        1, 0, 2, 3), k3_cond), "torch.bincount gives K3's counts")
-    res["k3_lib_ms"] = statistics.median(event_ms(
-        lambda: torch.bincount(idx, minlength=(cols - 1) * K * A * A),
-        torch) for _ in range(5))
-    res["k3_bound"] = bound(
-        n * cols + n + K * (cols - 1) * A * A * 8 + K * A * 8, n * cols * 4,
-        rate)
-    print(f"[7] torch.bincount over the combined index, C={K}: "
-          f"{res['k3_lib_ms']:.3f} ms (median of 5), equal to K3; K3 bound "
-          f"{res['k3_bound'][0]:.4f} ms ({res['k3_bound'][1]})", flush=True)
-    del idx, lib_cond, k3_cond
 
     # -- 8. K1 with the cluster ids -----------------------------------------
     c0, cond = ts.conditional_counts_t(data_t, cl_t, K)
@@ -933,6 +1062,40 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
     return res
 
 
+def k3_big(torch, np, data_t, cl_t, host_counts, K: int, gpu) -> dict:
+    """K3 at K clusters (phase 16: the increments in device memory, a
+    warp's equal bins merged) against its plain version and the host's
+    counts, timed in turns with the plain version (median of 5); its
+    bound from its counted SASS."""
+    from qvz_tpu_torch.ops import stats as ts
+
+    cols, n = data_t.shape
+    shape = ts.card_hist_shape(data_t, K)
+    got = ts.conditional_counts_t(data_t, cl_t, K)
+    want = ts.conditional_counts_reference(data_t, cl_t, K)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    host_counts_t = [torch.from_numpy(h).to(data_t.device)
+                     for h in host_counts]
+    require(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want))
+            and all(torch.equal(a, b) for a, b in zip(got, host_counts_t)),
+            f"[16] K3 at C={K} equals its plain version and rt.stats_host")
+    del got, want
+    ms, plain_ms, runs, _ = in_turns(
+        lambda: ts.conditional_counts_t(data_t, cl_t, K),
+        lambda: ts.conditional_counts_reference(data_t, cl_t, K), torch)
+    bound = k3_bound(gpu, shape, n, cols, K)
+    print(f"[16] K3 {cols} x {n}, C={K} (mode {shape['mode']}, band "
+          f"{shape['band']}, {shape['nbands']} x {shape['nslices']} blocks "
+          f"of {shape['threads']}): equal to the plain version and "
+          f"rt.stats_host (max abs err {err}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms (median of 5, in turns; kernel "
+          f"{[round(r, 4) for r in runs]}); bound {bound[0]:.4f} ms "
+          f"({bound[1]}, {bound[2]}; SASS instructions by pipe "
+          f"{json.dumps(bound[3])})", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
+
+
 def big_plan_phase(torch, np, dist, gpu) -> dict:
     """Phase 16: a plan too large for K5's shared-memory layout. 200,000 x
     20 of the phase-2 generator at -c BIG_K (K5 stages the plan at one
@@ -1000,8 +1163,10 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
         dev).t().contiguous()
     k4 = k4_phase(torch, np, data, data_t, K, 4.0, gpu, "[16]", runs=3,
                   host=km)
-    k1, (mid, qs, _) = k1_phase(torch, tables, data_t, draws_t,
-                                torch.from_numpy(cl).to(dev), gpu, "[16]")
+    cl_t = torch.from_numpy(cl).to(dev)
+    k3 = k3_big(torch, np, data_t, cl_t, (c0, cond), K, gpu)
+    k1, (mid, qs, _) = k1_phase(torch, tables, data_t, draws_t, cl_t, gpu,
+                                "[16]")
     plan_t = cd.plan_to_torch(cd.LanePlan(tables, None), dev)
     lane_counts, base = counts[1:], int(offs[1])
     want = cd.triples_reference(plan_t, mid, qs, lane_counts, base, 0, cols)
@@ -1049,7 +1214,7 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
           f"to the plain versions: K2a layout 1 {a_ms[1]:.3f} ms, layout 2 "
           f"{a_ms[2]:.3f} ms; K5 layout 1 {k5_ms[1]:.3f} ms, layout 2 "
           f"{k5_ms[2]:.3f} ms (median of 3)", flush=True)
-    return {"k1_err": k1["err"], "k4_err": k4["err"]}
+    return {"k1_err": k1["err"], "k4_err": k4["err"], "k3": k3}
 
 
 def microbench_phase() -> list:
@@ -1175,6 +1340,7 @@ def main() -> int:
     mb = n * (cols + 1) / 1e6
     _build.LAUNCHES.clear()
     e2e = {}
+    stats_phase = {}
     containers = {}
     for prime in (True, False):
         kw = dict(well_state=WellState.debug(), shards=0, prime=prime)
@@ -1204,6 +1370,7 @@ def main() -> int:
                     f"prime={prime}: -s rate, distortion and size equal")
         phases = {k: round(v, 6) for k, v in fast.stats.phase_seconds.items()}
         e2e[prime] = secs
+        stats_phase[prime] = fast.stats.phase_seconds["stats"]
         containers[f"-c 1 prime={prime}"] = (out.compressed,
                                              out.reconstructed)
         print(f"[5] prime={prime}: {len(ref.compressed)} B container "
@@ -1217,9 +1384,29 @@ def main() -> int:
     print(f"[5] kernel launches by the encodes: {launches}")
     for name in ("hist", "quantize", "coder_triples", "coder_chain"):
         require(launches.get(name, 0) >= 1, f"the encode launched {name}")
+    # the encode's stats phase split as pipeline/encode.py runs it: K3
+    # (CUDA events), then the counts' copy to the host (host clock)
+    dt = data_dev.t().contiguous()
+    split = []
+    for _ in range(5):
+        got = []
+        k3_ms = event_ms(lambda: got.append(
+            ts.conditional_counts_t(dt, None, 1)), torch)
+        t = time.perf_counter()
+        [x.cpu().numpy() for x in got[0]]
+        split.append((k3_ms, (time.perf_counter() - t) * 1e3))
+    del dt, got
+    print(f"[5] the stats phase split (median of 5): K3 "
+          f"{statistics.median(a for a, _ in split):.4f} ms (CUDA events), "
+          f"the counts' copy to the host "
+          f"{statistics.median(b for _, b in split):.4f} ms (host clock); "
+          f"the encodes' stats phase (last run) "
+          + ", ".join(f"prime={p} {v * 1e3:.4f} ms"
+                      for p, v in stats_phase.items()), flush=True)
 
     # -- 6.-10. the clustered path (-c 3 -T 4) -----------------------------
-    clus = clustered_phases(torch, np, data, dist, gpu, rate)
+    clus = clustered_phases(torch, np, data, dist, gpu)
+    k3 = clus.pop("k3")
     for name, k in clus["launches"].items():
         launches[name] = launches.get(name, 0) + k
     containers.update(clus.pop("containers"))
@@ -1256,10 +1443,20 @@ def main() -> int:
         {"name": "hist", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/hist.cu",
          "replaces": "qvz_tpu/ops/pallas_kernels.py:168",
-         "launches": launches["hist"], "max_abs_err": clus["k3_err"],
-         "ms": clus["k3_ms"], "plain_ms": clus["k3_plain_ms"],
-         "bound_ms": clus["k3_bound"][0], "bound_by": clus["k3_bound"][1],
-         "library_ms": clus["k3_lib_ms"]},
+         "launches": launches["hist"],
+         "max_abs_err": max(k3["err"], big["k3"]["err"]),
+         "ms": k3["ms"]["illumina C=3"],
+         "plain_ms": k3["plain_ms"]["illumina C=3"],
+         "bound_ms": k3["bound"][3][0], "bound_by": k3["bound"][3][1],
+         "library_ms": k3["lib_ms"][3],
+         "ms_c1": k3["ms"]["illumina C=1"],
+         "plain_ms_c1": k3["plain_ms"]["illumina C=1"],
+         "bound_ms_c1": k3["bound"][1][0], "library_ms_c1": k3["lib_ms"][1],
+         "ms_binned_c1": k3["ms"]["binned C=1"],
+         "ms_binned_c3": k3["ms"]["binned C=3"],
+         "ms_c150": big["k3"]["ms"], "plain_ms_c150": big["k3"]["plain_ms"],
+         "bound_ms_c150": big["k3"]["bound"][0],
+         "zero_ms_c1": k3["zero_ms"][1], "zero_ms_c3": k3["zero_ms"][3]},
         {"name": "kmeans", "route": "cuda",
          "source": "qvz_tpu_torch/csrc/kmeans.cu",
          "replaces": "qvz_tpu/ops/pallas_kernels.py:33",
@@ -1280,6 +1477,11 @@ def main() -> int:
     for k in kernels:
         require(k["ms"] >= k["bound_ms"],
                 f"{k['name']} ({k['ms']} ms) no faster than its bound")
+    hist = next(k for k in kernels if k["name"] == "hist")
+    for case in ("c1", "c150"):
+        require(hist[f"ms_{case}"] >= hist[f"bound_ms_{case}"],
+                f"hist at {case} ({hist[f'ms_{case}']} ms) no faster than "
+                "its bound")
     print(f"e2e encode MB/s: -c 1 prime on {mb / e2e[True]:.1f}, "
           f"prime off {mb / e2e[False]:.1f}; -c 3 prime on "
           f"{mb / clus['e2e'][True]:.1f}, prime off "

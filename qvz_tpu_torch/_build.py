@@ -122,7 +122,8 @@ def load() -> ctypes.CDLL:
     lib.qvz_coder_chain.argtypes = [p, i32, i32, p, i32, p, i64, p, p,
                                     i32, p]
     lib.qvz_coder_chain.restype = ctypes.c_int
-    lib.qvz_hist.argtypes = [p, p, i64, i32, i32, p, p, p]
+    lib.qvz_hist.argtypes = [p, p, i64, i32, i32, i32, i32, i64, i32, i32,
+                             i32, p, p, p]
     lib.qvz_hist.restype = ctypes.c_int
     lib.qvz_kmeans_step.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32,
                                     i32, i64, i32, p, p, p]

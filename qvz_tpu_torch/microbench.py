@@ -374,19 +374,20 @@ def run_plain(leg: Leg, reps: int, kw=None, c=None, x=None, tiles=1):
 _INSN = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
 _PRED = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+@!?(U?P\w+)\s")
-# 4-byte words that one thread's LDS or STS moves, by its width
+# 4-byte words that one thread's LDS, STS or ATOMS moves, by its width
 _WORDS = {"U8": 0.25, "S8": 0.25, "U16": 0.5, "S16": 0.5, "64": 2, "128": 4}
 
 
 def _weights(op: str) -> dict:
     """One instruction's share of each pipe: roofline's "alu", "fma" and
-    "issue" (every instruction), and the shared-memory words it moves."""
+    "issue" (every instruction), and the shared-memory words it moves (a
+    shared atomic its word)."""
     base, *mods = op.split(".")
     return {"issue": 1, "alu": int(base in roofline.ALU_OPS),
             "fma": int(base in roofline.FMA_OPS),
             "shared": _WORDS.get(next((m for m in mods if m in _WORDS),
                                       None), 1)
-            if base in ("LDS", "STS") else 0}
+            if base in ("LDS", "STS", "ATOMS") else 0}
 
 
 def _target(args: str) -> int | None:

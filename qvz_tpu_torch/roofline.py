@@ -12,7 +12,8 @@ clock that nvidia-smi reads:
                   MOV, IADD and SHL forms)
   issue           4 schedulers x one warp instruction of 32 threads: 128
                   thread instructions of any kind
-  shared memory   32 words of 4 bytes
+  shared memory   32 words of 4 bytes (a load, a store or an atomic of
+                  one word each)
 
 ``pipe_bound`` takes a kernel's instructions counted from its SASS and is
 bound by the slowest pipe. ``bound`` takes an estimated count of int32

@@ -396,3 +396,15 @@ def test_trip_min_takes_the_shortest_trip(monkeypatch):
                                         "shared": 0.5}
     with pytest.raises(RuntimeError, match="no MUFU"):
         mb.trip_min(insns, 0x10, "MUFU")
+
+
+@pytest.mark.parametrize("op,shared", [
+    ("ATOMS.POPC.INC.32", 1), ("ATOMS.ADD", 1), ("ATOMS.ADD.64", 2),
+    ("LDS.128", 4), ("STS.U8", 0.25), ("ATOM.E.ADD.64", 0),
+    ("REDG.E.ADD.64.STRONG.GPU", 0)])
+def test_shared_atomics_count_as_shared_words(op, shared):
+    """A shared-memory atomic moves its word through the shared-memory
+    pipe, as a load or store of that width does; device-memory atomics
+    move none."""
+    assert mb._weights(op)["shared"] == shared
+    assert mb._weights(op)["issue"] == 1
