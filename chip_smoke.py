@@ -5,7 +5,8 @@
 
 Drives the port's main paths, the device QVZ2 encode with one cluster
 and with k-means clustering (-c 3 -T 4) and the device decode of their
-containers, at a full-size input: 1,000,000 reads x 100 columns of
+containers, the streamed encode of an input above 1 GiB (phase 17) and
+the multi-host encode and decode (phase 18), at a full-size input: 1,000,000 reads x 100 columns of
 Illumina-like quality scores made from seed 42, -f 0.5, MSE, --shards 0
 (the device lane count), priming on and off, the debug WELL seed.
 Phases:
@@ -109,6 +110,27 @@ Phases:
      its plain version, as in 3; K2a and K5 in each layout that holds the
      plan, device-memory uses (layout 2) included, against their plain
      versions over all 20 columns
+ 17. a streamed encode of more than 1 GiB: 11,000,000 x 100 reads (1.111
+     GB, 1,000,000-read blocks of the phase-2 generator, seeds 42-52)
+     written under build/, and three child interpreters running
+     qvz_tpu_torch.cli.main: A, -f 0.5 --debug-seed --shards 512 -s, which
+     streams by itself (pipeline/streaming.py: K3 a chunk, K1 a shard, the
+     coding on host threads); B, the same with -u and
+     QVZ_TPU_STREAM_MIN_BYTES above the file's size, the in-memory device
+     encode; C, -x of A's container on the card. A's container equals
+     B's, its -s rate, distortion and size B's, C's text B's -u file; A
+     launched hist 11 times and quantize once a shard; A's peak RSS
+     (ru_maxrss) is below B's by the input's size at least and its peak
+     device memory (torch.cuda.max_memory_allocated) below B's; each
+     child's seconds, MB/s and peaks printed; the directory is removed
+     after
+ 18. multi-host on the card: phase 2's input written to a file;
+     encode_multihost at 2 hosts and the device lane count with
+     device="cuda", byte-equal to phase 5's primed container, each
+     in-memory worker launching K3 once; the CLI's --hosts 2 --streaming
+     -c 3 -T 4 at that shard count, byte-equal to phase 10's primed
+     container; decode_multihost at 2 hosts of phase 5's container,
+     byte-equal to the host decoder
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns, one call each. Each kernel's bound
@@ -1217,6 +1239,333 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
     return {"k1_err": k1["err"], "k4_err": k4["err"], "k3": k3}
 
 
+# A child interpreter of phase 17: brings up its CUDA context, then runs
+# qvz_tpu_torch.cli.main on its arguments and prints one JSON line: its
+# return code, the context's seconds and cli.main's, its kernel launches,
+# its peak device memory, and its peak resident set (ru_maxrss, kB) with
+# the context up and at the end.
+STREAM_CHILD = r"""
+import json, resource, sys, time
+import torch
+from qvz_tpu_torch import _build, cli
+t = time.perf_counter()
+torch.zeros(1, device="cuda")
+base = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+t1 = time.perf_counter()
+rc = cli.main(["qvz_tpu_torch", *sys.argv[1:]])
+secs = time.perf_counter() - t1
+print(json.dumps({"rc": rc, "init_s": t1 - t, "secs": secs,
+                  "launches": dict(_build.LAUNCHES),
+                  "peak": torch.cuda.max_memory_allocated(),
+                  "base_kb": base, "hwm_kb": resource.getrusage(
+                      resource.RUSAGE_SELF).ru_maxrss}))
+"""
+
+STREAM_BLOCKS = 11           # phase 17: 11 x 1,000,000 reads x 100 columns
+STREAM_SHARDS = 512
+
+
+def _child(args, env_extra, timeout=600) -> tuple[dict, list]:
+    """Run STREAM_CHILD with the CLI's arguments from the repository root;
+    returns its JSON line and the lines before it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k != "QVZ_TPU_STREAM_MIN_BYTES"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra)
+    # A child of a shell that goes on after it (no exec), so that its
+    # ru_maxrss starts from the shell's few MB: a child forked from this
+    # process starts from this process's resident set, and the card's
+    # machine has no VmHWM in /proc/self/status.
+    r = subprocess.run(["/bin/sh", "-c", '"$0" "$@"; r=$?; exit $r',
+                        sys.executable, "-c", STREAM_CHILD, *args], cwd=root,
+                       env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    lines = r.stdout.strip().splitlines()
+    require(r.returncode == 0 and lines,
+            f"child {args} exited {r.returncode}: {r.stdout[-2000:]}"
+            f"{r.stderr[-2000:]}")
+    res = json.loads(lines[-1])
+    require(res["rc"] == 0, f"child {args}: cli.main returned {res['rc']}: "
+            f"{lines[:-1]}")
+    return res, lines[:-1]
+
+
+def _s_fields(lines) -> tuple:
+    """The -s line's rate, distortion and size."""
+    f = [x.strip() for x in lines[-1].split(",")]
+    require(f[0] == "rate" and f[6] == "size", f"an -s line: {lines}")
+    return f[1], f[3], f[7]
+
+
+def same_file(a: str, b: str) -> bool:
+    import filecmp
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def streamed_shards_k1(torch, np, src: str, qpath: str, n: int, cols: int,
+                       gpu) -> dict:
+    """K1 against its plain version at the shapes the streamed encode
+    gives it: the warmup shard, a full shard and the ragged last shard of
+    the plan, rebuilt from the input file as encode_streaming builds them
+    (the memmap's rows, the WELL draws from each shard's start state), on
+    the tables of the streamed container's codebooks. The container's
+    directory must hold the same plan. Returns the largest error."""
+    from qvz_tpu_torch.format import container_v2
+    from qvz_tpu_torch.native import runtime as rt
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline.host import _rows, shard_plan
+
+    counts, states, offs, _ = shard_plan(n, cols, STREAM_SHARDS, True,
+                                         WellState.debug())
+    S = len(counts)
+    with open(qpath, "rb") as f:
+        prefix = f.read(8 << 20)
+    hdr = container_v2.header_size()
+    tables = rt.tables_from_blocks(prefix[hdr:], 1, cols)
+    head = container_v2.parse(prefix, blocks_len=tables.consumed,
+                              payload_limit=os.path.getsize(qpath))
+    require([sh.lines for sh in head.shards] == [int(c) for c in counts]
+            and all(sh.well_state == np.asarray(st, "<u4").tobytes()
+                    for sh, st in zip(head.shards, states)),
+            "the streamed container's directory holds the shard plan")
+    mm = np.memmap(src, dtype=np.uint8, mode="r")
+    errs = []
+    for s in (0, 1, S - 1):
+        lo, hi = int(offs[s]), int(offs[s + 1])
+        rows = _rows(mm, cols, lo, hi)
+        draws = rt.well_draws7(states[s], (hi - lo) * cols).reshape(
+            hi - lo, cols)
+        data_t = torch.from_numpy(rows).cuda().t().contiguous()
+        draws_t = torch.from_numpy(draws).cuda().t().contiguous()
+        res, _ = k1_phase(torch, tables, data_t, draws_t, None, gpu,
+                          f"[17] shard {s} of {S},")
+        errs.append(res["err"])
+    del mm
+    return {"err": max(errs)}
+
+
+def streamed_clustered(np, data, containers, td: str) -> dict:
+    """encode_streaming on the card at -c 3 -T 4 of phase 2's input at
+    phase 10's shard count, in chunks of 300,000 reads (K3 on each
+    chunk's slice of the cluster ids, K1 with ids on each shard):
+    byte-equal to phase 10's primed container, K3 once a chunk and K1
+    once a shard. Returns its launches and seconds."""
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline.encode import device_lane_count
+    from qvz_tpu_torch.pipeline.streaming import encode_streaming
+
+    n, cols = data.shape
+    src, out = os.path.join(td, "in1"), os.path.join(td, "c3.q")
+    with open(src, "wb") as f:
+        f.write(np.concatenate(
+            [data + 33, np.full((n, 1), 10, np.uint8)], 1).tobytes())
+    chunk = 300_000
+    _build.LAUNCHES.clear()
+    t = time.perf_counter()
+    st = encode_streaming(src, out, n_clusters=3, cluster_threshold=4.0,
+                          shards=device_lane_count(n), chunk_lines=chunk,
+                          well_state=WellState.debug(), device="cuda")
+    secs = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    with open(out, "rb") as f:
+        require(f.read() == containers["-c 3 prime=True"][0],
+                "the streamed -c 3 encode on the card equals phase 10's "
+                "primed container")
+    require(launches.get("hist") == -(-n // chunk),
+            f"K3 once a chunk of {chunk}: {launches}")
+    require(launches.get("quantize") == st["shards"],
+            f"K1 once a shard ({st['shards']}): {launches}")
+    print(f"[17] encode_streaming on the card, -c 3 -T 4, {st['shards']} "
+          f"shards, chunks of {chunk}: byte-equal to phase 10 in "
+          f"{secs:.3f} s; launches {launches}", flush=True)
+    return {"launches": launches, "secs": secs}
+
+
+def streamed_phase(torch, np, data, containers, gpu) -> dict:
+    """Phase 17: a streamed encode of more than 1 GiB. 11,000,000 x 100
+    reads (1.111 GB) written in 1,000,000-read blocks of the phase-2
+    generator with seeds 42-52 (42's is phase 2's `data`; the others
+    made four at a time), then four child interpreters: A, the CLI at
+    -f 0.5 --debug-seed --shards 512 -s, which streams by itself; B, the
+    same with -u above a raised QVZ_TPU_STREAM_MIN_BYTES, the in-memory
+    device encode; D, A with --streaming and -u; then C, -x of A's
+    container on the card. A's container equals B's and D's, its -s
+    figures theirs, C's text and D's -u file B's -u file; A and D
+    launched K3 once a chunk and K1 once a shard; A's peak resident set
+    is below B's by the input's size at least, its peak device memory
+    below B's. K1 is held against
+    its plain version at A's shard shapes (streamed_shards_k1), and the
+    streamed -c 3 path on the card against phase 10
+    (streamed_clustered). Returns the launches and the figures."""
+    import shutil
+    import tempfile
+
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline.host import shard_plan
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    td = tempfile.mkdtemp(prefix="smoke17_", dir=os.path.join(root, "build"))
+    try:
+        n, cols = STREAM_BLOCKS * 1_000_000, 100
+        src = os.path.join(td, "in")
+        t = time.perf_counter()
+
+        def block(seed):
+            q = data if seed == 42 else make_input(1_000_000, cols, seed)
+            return np.concatenate(
+                [q + 33, np.full((len(q), 1), 10, np.uint8)], 1).tobytes()
+
+        from concurrent.futures import ThreadPoolExecutor
+        with open(src, "wb") as f, ThreadPoolExecutor(4) as ex:
+            for raw in ex.map(block, range(42, 42 + STREAM_BLOCKS)):
+                f.write(raw)
+        size = os.path.getsize(src)
+        require(size == n * (cols + 1) and size >= 2 ** 30,
+                f"the input is {size} B, at least 1 GiB")
+        print(f"[17] wrote {n} x {cols} ({size} B) in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        common = ["-f", "0.5", "--debug-seed", "--shards",
+                  str(STREAM_SHARDS), "-s", "-v"]
+        p = {k: os.path.join(td, k)
+             for k in ("A.q", "B.q", "B.u", "D.q", "D.u", "A.dec")}
+        a, a_out = _child([*common, src, p["A.q"]], {})
+        b, b_out = _child([*common, "-u", p["B.u"], src, p["B.q"]],
+                          {"QVZ_TPU_STREAM_MIN_BYTES": str(size + 1)})
+        d, d_out = _child([*common, "--streaming", "-u", p["D.u"], src,
+                           p["D.q"]], {})
+        c, _ = _child(["-x", p["A.q"], p["A.dec"]], {})
+        shards = len(shard_plan(n, cols, STREAM_SHARDS, True,
+                                WellState.debug())[0])
+        require(same_file(p["A.q"], p["B.q"]),
+                "the streamed container equals the in-memory one")
+        require(same_file(p["A.q"], p["D.q"]),
+                "the streamed container with -u equals the one without")
+        sa, sb, sd = _s_fields(a_out), _s_fields(b_out), _s_fields(d_out)
+        require(sa == sb == sd,
+                f"-s rate, distortion and size equal ({sa}, {sb}, {sd})")
+        require(same_file(p["A.dec"], p["B.u"]),
+                "the device decode of the streamed container equals -u")
+        require(same_file(p["D.u"], p["B.u"]),
+                "the streamed -u file equals the in-memory one")
+        for tag, r in (("A", a), ("D", d)):
+            require(r["launches"].get("hist") == STREAM_BLOCKS,
+                    f"{tag} launched K3 once a chunk: {r['launches']}")
+            require(r["launches"].get("quantize") == shards,
+                    f"{tag} launched K1 once a shard ({shards}): "
+                    f"{r['launches']}")
+        require(a["hwm_kb"] * 1024 + size <= b["hwm_kb"] * 1024,
+                f"A's peak RSS {a['hwm_kb']} kB below B's {b['hwm_kb']} kB "
+                "by the input's size")
+        require(a["peak"] < b["peak"],
+                f"A's peak device memory {a['peak']} below B's {b['peak']}")
+        qsize = os.path.getsize(p["A.q"])
+        mb = size / 1e6
+        print(f"[17] {shards} shards: the streamed container ({qsize} B) "
+              f"byte-equal to the in-memory encode's and to --streaming "
+              f"-u's, -s equal ({sa}), the device decode and the streamed "
+              f"-u file equal to the in-memory -u; A launched "
+              f"{a['launches']}", flush=True)
+        for tag, out in (("A", a_out), ("B", b_out), ("D", d_out)):
+            # -v's phase lines: "  name: seconds" (cli.py)
+            split = dict(line.strip().rstrip("s").split(": ")
+                         for line in out if line.startswith("  "))
+            print(f"[17] {tag}'s phases (s): {json.dumps(split)}", flush=True)
+        runs = {"A": a, "B": b, "C": c, "D": d}
+        for tag, r in (("A streamed encode", a),
+                       ("B in-memory encode, -u", b),
+                       ("D streamed encode, -u", d),
+                       ("C device decode of A", c)):
+            print(f"[17] {tag}: {r['secs']:.3f} s = {mb / r['secs']:.1f} "
+                  f"MB/s (after {r['init_s']:.3f} s of CUDA context); peak "
+                  f"device memory {r['peak'] / 2**20:.1f} MiB; peak RSS "
+                  f"{r['hwm_kb'] / 2**10:.1f} MiB ({r['base_kb'] / 2**10:.1f}"
+                  " MiB with the context up)", flush=True)
+        k1 = streamed_shards_k1(torch, np, src, p["A.q"], n, cols, gpu)
+        clus = streamed_clustered(np, data, containers, td)
+        return {"launches": [r["launches"] for r in runs.values()]
+                + [clus["launches"]],
+                "secs": {k: r["secs"] for k, r in runs.items()},
+                "peak": {k: r["peak"] for k, r in runs.items()},
+                "hwm_kb": {k: r["hwm_kb"] for k, r in runs.items()},
+                "mb": mb, "k1_err": k1["err"]}
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
+def multihost_phase(np, data, containers) -> dict:
+    """Phase 18: multi-host on the card. Phase 2's input written to a
+    file; encode_multihost at 2 hosts and the device lane count on the
+    card, byte-equal to phase 5's primed -c 1 container, each in-memory
+    worker launching K3; the CLI's --hosts 2 --streaming -c 3 -T 4 at that
+    shard count, byte-equal to phase 10's primed container; and
+    decode_multihost at 2 hosts of phase 5's container, byte-equal to the
+    host decoder. Returns the workers' K3 launches."""
+    import shutil
+    import tempfile
+
+    from qvz_tpu_torch import cli
+    from qvz_tpu_torch.parallel import multihost
+    from qvz_tpu_torch.pipeline import host
+    from qvz_tpu_torch.pipeline.encode import device_lane_count
+    from qvz_tpu_torch.ops.well import WellState
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    td = tempfile.mkdtemp(prefix="smoke18_", dir=os.path.join(root, "build"))
+    try:
+        n, cols = data.shape
+        shards = device_lane_count(n)
+        src = os.path.join(td, "in")
+        with open(src, "wb") as f:
+            f.write(np.concatenate(
+                [data + 33, np.full((n, 1), 10, np.uint8)], 1).tobytes())
+        t = time.perf_counter()
+        comp, st = multihost.encode_multihost(
+            src, n_hosts=2, shards=shards, well_state=WellState.debug(),
+            device="cuda")
+        secs = time.perf_counter() - t
+        require(comp == containers["-c 1 prime=True"][0],
+                "the 2-host encode equals phase 5's primed container")
+        k3 = st["worker_launches"]["hist"]
+        # each in-memory worker counts its rows in one K3 call
+        require(st["hosts"] == 2 and k3 == [1, 1],
+                f"each of the 2 workers launched K3 once ({k3})")
+        out = os.path.join(td, "s.q")
+        t = time.perf_counter()
+        rc = cli.main(["qvz_tpu_torch", "--hosts", "2", "--streaming", "-f",
+                       "0.5", "-c", "3", "-T", "4", "--shards", str(shards),
+                       "--debug-seed", src, out])
+        s_secs = time.perf_counter() - t
+        require(rc == 0, "--hosts 2 --streaming -c 3 -T 4 ran")
+        with open(out, "rb") as f:
+            require(f.read() == containers["-c 3 prime=True"][0],
+                    "the 2-host streamed -c 3 encode equals phase 10's "
+                    "primed container")
+        cpath, dec = os.path.join(td, "c.q"), os.path.join(td, "c.dec")
+        with open(cpath, "wb") as f:
+            f.write(containers["-c 1 prime=True"][0])
+        t = time.perf_counter()
+        require(multihost.decode_multihost(cpath, dec, n_hosts=2) == n,
+                "decode_multihost decoded every line")
+        d_secs = time.perf_counter() - t
+        with open(dec, "rb") as f:
+            require(f.read() == host.decode(
+                containers["-c 1 prime=True"][0]).tobytes(),
+                "the 2-host decode equals the host decoder")
+        print(f"[18] 2 hosts, {shards} shards: the encode on the card "
+              f"byte-equal to phase 5 in {secs:.3f} s (K3 launches by the "
+              f"workers {k3}; phases "
+              f"{ {k: round(v, 4) for k, v in st.items() if k.endswith('_s')} }"
+              f"); --streaming -c 3 -T 4 byte-equal to phase 10 in "
+              f"{s_secs:.3f} s; decode_multihost byte-equal to the host "
+              f"decoder in {d_secs:.3f} s", flush=True)
+        return {"hist": k3}
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
 def microbench_phase() -> list:
     """Phase 15: the microbenchmark's legs (qvz_tpu_torch.microbench);
     returns its three kernels' entries of the kernels line."""
@@ -1420,6 +1769,16 @@ def main() -> int:
 
     # -- 16. a plan too large for K5's shared-memory layout -----------------
     big = big_plan_phase(torch, np, dist, gpu)
+
+    # -- 17. a streamed encode of more than 1 GiB ----------------------------
+    torch.cuda.empty_cache()     # the card's memory for the children
+    streamed = streamed_phase(torch, np, data, containers, gpu)
+    # -- 18. multi-host on the card -----------------------------------------
+    mh = multihost_phase(np, data, containers)
+    for child in streamed["launches"]:
+        for name, k in child.items():
+            launches[name] = launches.get(name, 0) + k
+    launches["hist"] += sum(mh["hist"])
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -1427,7 +1786,8 @@ def main() -> int:
          "source": "qvz_tpu_torch/csrc/quantize.cu",
          "replaces": "qvz_tpu/ops/quantize_pallas.py:292",
          "launches": launches["quantize"],
-         "max_abs_err": max(k1["err"], clus["k1"]["err"], big["k1_err"]),
+         "max_abs_err": max(k1["err"], clus["k1"]["err"], big["k1_err"],
+                            streamed["k1_err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
          "library_ms": None},
@@ -1489,6 +1849,16 @@ def main() -> int:
     print("e2e decode MB/s (host decoder): " + "; ".join(
         f"{name} {mb / s:.1f} ({mb / h:.1f})"
         for name, (s, h) in dec["e2e"].items()))
+    sm = streamed["mb"]
+    print(f"phase 17, {sm:.0f} MB: streamed encode {sm / streamed['secs']['A']:.1f}"
+          f" MB/s, in-memory encode with -u {sm / streamed['secs']['B']:.1f}, "
+          f"streamed encode with -u {sm / streamed['secs']['D']:.1f}, "
+          f"device decode {sm / streamed['secs']['C']:.1f} (each a child "
+          "interpreter's cli.main); peak device memory MiB "
+          + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in streamed["peak"].items())
+          + "; peak RSS MiB "
+          + ", ".join(f"{k} {v / 2**10:.1f}"
+                      for k, v in streamed["hwm_kb"].items()))
     print("K5 over all columns (the -c 1 primed one in the kernels line): "
           + ", ".join(f"{name} {ms:.3f} ms"
                       for name, ms in dec["all_ms"].items()))

@@ -5,7 +5,12 @@ A port of qvz_tpu's sharded QVZ2 device encode and decode for one NVIDIA
 H100: k-means clustering, statistics, quantization and lane-parallel
 entropy coding run on the card and produce containers byte-identical to
 qvz_tpu's, and lane-parallel entropy decoding gives the host decoder's
-bytes. The kernels are
+bytes. Its drivers are qvz_tpu's too: the bounded-memory streaming
+encode (``pipeline/streaming.py``: statistics chunk by chunk and the
+quantization shard by shard on the card, the coding on host threads),
+which the CLI takes by itself for an input of 1 GiB or more, and the
+multi-host encode and decode across worker processes
+(``parallel/multihost.py``). The kernels are
 CUDA C++ under ``csrc/`` (built on first use, see ``_build``); every one
 has a plain PyTorch version beside it, which the wrappers use for tensors
 on the CPU.

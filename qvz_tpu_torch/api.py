@@ -5,7 +5,8 @@
     stats = qvz.compress("reads.qual", "reads.q", shards=0, device="cuda")
     qvz.decompress("reads.q", "reads.dec", device="cuda")
 
-Compression runs the device QVZ2 encode (pipeline/encode.py);
+Compression runs the device QVZ2 encode (pipeline/encode.py), or with
+``compress(..., hosts=N)`` the multi-host driver (parallel/multihost.py);
 decompression the device QVZ2 decode (pipeline/decode.py), which sends
 containers without lanes (v1, single-shard) to the port's host decoder.
 """
@@ -65,12 +66,28 @@ def decompress_bytes(container: bytes, device: str = "cuda") -> bytes:
 
 def compress(input_path: str, output_path: str, *, hosts: int = 1,
              **kwargs):
-    """File-to-file compression; kwargs as compress_bytes. Returns
-    stats."""
-    if hosts != 1:
-        raise NotImplementedError(
-            "--hosts is not ported to qvz_tpu_torch yet (ROADMAP.md, "
-            "'Modules to port' item 9)")
+    """File-to-file compression; kwargs as compress_bytes. hosts=N > 1
+    runs the multi-host driver (parallel/multihost.py), byte-identical
+    for the same shard count. Returns stats (a dict with hosts > 1)."""
+    if hosts > 1:
+        from qvz_tpu_torch.parallel.multihost import encode_multihost
+        compressed, mh = encode_multihost(
+            input_path, n_hosts=hosts,
+            shards=kwargs.pop("shards", 0) or 0,
+            n_clusters=kwargs.pop("clusters", 1),
+            mode=kwargs.pop("mode", MODE_RATIO),
+            ratio=kwargs.pop("ratio", 0.5),
+            cluster_threshold=kwargs.pop("cluster_threshold", 4.0),
+            well_state=_well(kwargs.pop("well_seed", None),
+                             kwargs.pop("debug_seed", False)),
+            dist_matrix=make_matrix(
+                kwargs.pop("distortion", DISTORTION_MSE),
+                path=kwargs.pop("distortion_file", None)),
+            prime=kwargs.pop("prime", True),
+            device=kwargs.pop("device", "cuda"))
+        with open(output_path, "wb") as f:
+            f.write(compressed)
+        return mh
     with open(input_path, "rb") as f:
         blob, stats = compress_bytes(f.read(), **kwargs)
     with open(output_path, "wb") as f:

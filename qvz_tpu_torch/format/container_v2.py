@@ -93,6 +93,27 @@ def is_v2(data) -> bool:
     return bytes(data[:4]) == MAGIC
 
 
+DIR_ENTRY_SIZE = _SHARD.size + 128   # one shard's directory entry
+
+
+def head(blocks: bytes, cluster_count: int, columns: int, lines: int,
+         n_shards: int, file_state: bytes, order: int = ORDER_COL,
+         priming: int = 0) -> bytes:
+    """The container up to its shard directory: the header, the codebook
+    blocks and the file-level WELL state (shard 0's start state)."""
+    assert len(file_state) == 128
+    return (_HEAD.pack(MAGIC, VERSION, cluster_count, order, priming,
+                       columns, lines, n_shards) + blocks + file_state)
+
+
+def dir_entry(lines: int, payload_len: int, checksum: int,
+              state: bytes) -> bytes:
+    """One shard's directory entry: lines, payload length, the payload's
+    xxh64 and the 128-byte WELL start state."""
+    assert len(state) == 128
+    return _SHARD.pack(lines, payload_len, checksum) + state
+
+
 def build(blocks: bytes, cluster_count: int, columns: int, lines: int,
           shard_lines: list, shard_states: list, payloads: list,
           order: int = ORDER_COL, priming: int = 0) -> bytes:
@@ -106,17 +127,10 @@ def build(blocks: bytes, cluster_count: int, columns: int, lines: int,
 
     n_shards = len(payloads)
     assert len(shard_lines) == n_shards and len(shard_states) == n_shards
-    out = bytearray()
-    out += _HEAD.pack(MAGIC, VERSION, cluster_count, order, priming,
-                      columns, lines, n_shards)
-    out += blocks
-    file_state = shard_states[0]
-    assert len(file_state) == 128
-    out += file_state
+    out = bytearray(head(blocks, cluster_count, columns, lines, n_shards,
+                         shard_states[0], order, priming))
     for nl, st, pay in zip(shard_lines, shard_states, payloads):
-        assert len(st) == 128
-        out += _SHARD.pack(nl, len(pay), _rt.xxh64(bytes(pay)))
-        out += st
+        out += dir_entry(nl, len(pay), _rt.xxh64(bytes(pay)), st)
     for pay in payloads:
         out += pay
     return bytes(out)

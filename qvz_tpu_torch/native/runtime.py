@@ -166,53 +166,71 @@ def kmeans_host(data: np.ndarray, n_clusters: int, threshold: float,
     """Reference-exact k-means on host threads; API-compatible with
     ops.kmeans.kmeans_cluster (integer distances/means, first-min,
     max-squared-movement stop vs threshold, cluster.c:212-243)."""
-    lib = native.load()
-    n, cols = data.shape
+    n = data.shape[0]
     if n_clusters == 1:
         return np.zeros(n, dtype=np.uint8), data[:1].copy(), 0
     data = np.ascontiguousarray(data, dtype=np.uint8)
     means = spec_kmeans.seed_centroids(data, n_clusters,
                                        verbose=verbose).astype(np.int64)
-    assign = np.empty(n, dtype=np.uint8)
-    sums = np.empty((n_clusters, cols), dtype=np.int64)
-    counts = np.empty(n_clusters, dtype=np.int64)
-    i64p = ctypes.POINTER(ctypes.c_int64)
     iters = 0
     while iters < MAX_KMEANS_ITERATIONS:
-        lib.qvz_kmeans_iter(_ptr(data, _u8p), n, cols,
-                            _ptr(means, i64p), n_clusters,
-                            _ptr(assign, _u8p), _ptr(sums, i64p),
-                            _ptr(counts, i64p))
+        assign, sums, counts = kmeans_iter(data, means)
         iters += 1
-        new_means = sums // np.maximum(counts, 1)[:, None]
-        diff = (new_means - means).astype(np.float64)
-        moved = float((diff * diff).sum(axis=1).max())
-        if verbose:
-            spec_kmeans.verbose_iteration(means, new_means)
-        means = new_means
-        if moved <= threshold:
+        means, stop = spec_kmeans.update_means(means, sums, counts,
+                                               threshold, verbose)
+        if stop:
             break
     if verbose:
         spec_kmeans.verbose_total(iters)
     return assign, means.astype(np.uint8), iters
 
 
+def kmeans_iter(data: np.ndarray, means: np.ndarray):
+    """One threaded Lloyd iteration over a (local) row range: returns
+    (assign u8, sums i64 (k, cols), counts i64 (k,)). The caller owns
+    the convergence loop and the integer merge across chunks or hosts:
+    partial sums are exact integers, so any merge order is bit-identical
+    (cluster.c:80-171 semantics)."""
+    lib = native.load()
+    n, cols = data.shape
+    k = means.shape[0]
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    means = np.ascontiguousarray(means, dtype=np.int64)
+    assign = np.empty(n, dtype=np.uint8)
+    sums = np.empty((k, cols), dtype=np.int64)
+    counts = np.empty(k, dtype=np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.qvz_kmeans_iter(_ptr(data, _u8p), n, cols, _ptr(means, i64p), k,
+                        _ptr(assign, _u8p), _ptr(sums, i64p),
+                        _ptr(counts, i64p))
+    return assign, sums, counts
+
+
 def stats_host(data: np.ndarray, clusters: np.ndarray | None,
-               n_clusters: int):
+               n_clusters: int, accumulate=None):
     """Single-pass C++ conditional histogram (codebook.c:185-203):
     (counts0 (C, 72), cond (C, cols-1, 72, 72)) int64, as
-    ops.stats.conditional_counts gives them."""
+    ops.stats.conditional_counts gives them. accumulate: optional
+    (counts0 u64, cond u64) arrays to add into (chunked statistics); the
+    returned dtype then stays uint64."""
     lib = native.load()
     n, cols = data.shape
     data = np.ascontiguousarray(data, dtype=np.uint8)
     cl = (np.ascontiguousarray(clusters, dtype=np.uint8)
           if clusters is not None else None)
-    counts0 = np.zeros((n_clusters, ALPHABET_SIZE), dtype=np.uint64)
-    cond = np.zeros((n_clusters, cols - 1, ALPHABET_SIZE, ALPHABET_SIZE),
-                    dtype=np.uint64)
+    if accumulate is not None:
+        counts0, cond = accumulate
+        assert counts0.dtype == np.uint64 and cond.dtype == np.uint64
+        assert counts0.flags["C_CONTIGUOUS"] and cond.flags["C_CONTIGUOUS"]
+    else:
+        counts0 = np.zeros((n_clusters, ALPHABET_SIZE), dtype=np.uint64)
+        cond = np.zeros((n_clusters, cols - 1, ALPHABET_SIZE,
+                         ALPHABET_SIZE), dtype=np.uint64)
     lib.qvz_stats(_ptr(data, _u8p), n, cols,
                   _ptr(cl, _u8p) if cl is not None else None,
                   _ptr(counts0, _u64p), _ptr(cond, _u64p))
+    if accumulate is not None:
+        return counts0, cond
     return counts0.astype(np.int64), cond.astype(np.int64)
 
 
@@ -332,11 +350,13 @@ def quantize_colmajor(tables: Tables, data_t: np.ndarray, cluster_ids,
 def encode_precomputed_colmajor(tables: Tables, model_t: np.ndarray,
                                 qs_t: np.ndarray, cluster_ids,
                                 n_lines: int,
-                                init_bank: np.ndarray | None = None):
+                                init_bank: np.ndarray | None = None,
+                                want_bank: bool = False):
     """Entropy-code a shard from device-precomputed (model id, symbol)
     streams in column-major order. Byte-identical to
     encode_fused_colmajor for the same quantization decisions.
-    init_bank: the model-bank snapshot to start from (shard priming)."""
+    init_bank/want_bank: model-bank snapshot in/out (shard priming);
+    with want_bank returns (payload, bank)."""
     lib = native.load()
     model_t = np.ascontiguousarray(model_t, dtype=np.uint32)
     qs_t = np.ascontiguousarray(qs_t, dtype=np.uint8)
@@ -344,6 +364,8 @@ def encode_precomputed_colmajor(tables: Tables, model_t: np.ndarray,
           if cluster_ids is not None else None)
     ib = (np.ascontiguousarray(init_bank, dtype=np.uint32)
           if init_bank is not None else None)
+    ob = (np.empty(tables.bank_words, dtype=np.uint32)
+          if want_bank else None)
     cols = tables.columns
     cap = n_lines * cols + (n_lines * cols) // 2 + 4096
     while True:
@@ -352,9 +374,11 @@ def encode_precomputed_colmajor(tables: Tables, model_t: np.ndarray,
             tables._h, _ptr(model_t, _u32p), _ptr(qs_t, _u8p),
             _ptr(cl, _u8p) if cl is not None else None,
             n_lines, _ptr(out, _u8p), cap,
-            _ptr(ib, _u32p) if ib is not None else None, None)
+            _ptr(ib, _u32p) if ib is not None else None,
+            _ptr(ob, _u32p) if ob is not None else None)
         if r >= 0:
-            return out[:r].tobytes()
+            return (out[:r].tobytes(), ob) if want_bank \
+                else out[:r].tobytes()
         cap = -r + 4096
 
 

@@ -246,14 +246,9 @@ def kmeans_cluster(data: np.ndarray, n_clusters: int, threshold: float,
         assign, packed = _step_packed(data_t, torch.from_numpy(means), shape)
         iters += 1
         packed = _to_host(packed)
-        new_means = packed[:, :cols] // np.maximum(packed[:, cols],
-                                                   1)[:, None]
-        diff = (new_means - means).astype(np.float64)
-        moved = float((diff * diff).sum(axis=1).max())
-        if verbose:
-            spec_kmeans.verbose_iteration(means, new_means)
-        means = new_means
-        if moved <= threshold:
+        means, stop = spec_kmeans.update_means(
+            means, packed[:, :cols], packed[:, cols], threshold, verbose)
+        if stop:
             break
     if verbose:
         spec_kmeans.verbose_total(iters)

@@ -6,8 +6,11 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
                device, and its (cols, N) transpose there
   cluster      k-means on the device (ops/kmeans.py, K4) for -c K > 1; the
                convergence loop on the host
-  stats        conditional statistics on the device (ops/stats.py, K3)
-  design       codebook design on the host (C++ runtime, exact doubles)
+  stats        conditional statistics on the device (ops/stats.py, K3);
+               0.0 with reuse_blocks, whose codebooks stand in for the
+               statistics and the design
+  design       codebook design on the host (C++ runtime, exact doubles),
+               or the tables read from reuse_blocks
   draws        WELL jump-ahead and dither draws on the host
   quantize     K1 on the device (ops/quantize.py)
   device_code  the cluster-id triples (host replay), K2a and K2b on the
@@ -52,12 +55,6 @@ def device_lane_count(n: int) -> int:
     return max(16, min(8192, max(n // 256, -(-n // 1536))))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to qvz_tpu_torch yet (ROADMAP.md, "
-        f"'Modules to port' {item})")
-
-
 def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
            n_clusters: int = 1, mode: int = MODE_RATIO, ratio: float = 0.5,
            cluster_threshold: float = 4.0,
@@ -74,10 +71,10 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     cluster_threshold, -T). shards=0 picks the device lane count;
     shards >= 2 pins it; shards == 1 codes the single-stream v1
     container on the host engine after the device statistics. prime:
-    shards after the warmup shard start from its model bank. Outside
-    this slice (raises NotImplementedError): reuse_blocks."""
-    if reuse_blocks is not None:
-        raise _not_ported("--reuse-books", "item 10")
+    shards after the warmup shard start from its model bank.
+    reuse_blocks: the codebook blocks of an earlier container (a
+    checkpoint); K4 still clusters, but the statistics and the design
+    are skipped (phase stats 0.0) and the tables come from the blocks."""
     dev = resolve(device)
     n, columns = data.shape
     if shards == 0:
@@ -108,19 +105,27 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     if verbose:
         print(f"Clustering took {t2 - t1:.4f} seconds")
 
-    counts0, cond = dev_stats.conditional_counts_t(data_t, cl_dev,
-                                                   n_clusters)
-    counts0, cond = counts0.cpu().numpy(), cond.cpu().numpy()
-    t3 = time.perf_counter()
-    ph["stats"] = dv["stats"] = t3 - t2
+    if reuse_blocks is not None:
+        tables = rt.tables_from_blocks(reuse_blocks, n_clusters, columns)
+        blocks = reuse_blocks[:tables.consumed]
+        t4 = time.perf_counter()
+        ph["stats"] = 0.0
+        ph["design"] = t4 - t2
+    else:
+        counts0, cond = dev_stats.conditional_counts_t(data_t, cl_dev,
+                                                       n_clusters)
+        counts0, cond = counts0.cpu().numpy(), cond.cpu().numpy()
+        t3 = time.perf_counter()
+        ph["stats"] = dv["stats"] = t3 - t2
 
-    design = rt.Design(counts0, cond, mode, ratio, dist_matrix)
-    blocks = design.serialized()
-    tables = design.tables()
-    t4 = time.perf_counter()
-    ph["design"] = t4 - t3
-    if verbose:
-        print(f"Stats and codebook generation took {t4 - t2:.4f} seconds")
+        design = rt.Design(counts0, cond, mode, ratio, dist_matrix)
+        blocks = design.serialized()
+        tables = design.tables()
+        t4 = time.perf_counter()
+        ph["design"] = t4 - t3
+        if verbose:
+            print(f"Stats and codebook generation took {t4 - t2:.4f} "
+                  "seconds")
 
     if shards == 1:
         compressed, payload_bytes, recon, dist_sum = host.encode_v1(

@@ -29,7 +29,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from qvz_tpu_torch.constants import MODE_RATIO
+from qvz_tpu_torch.constants import MODE_RATIO, PHRED_OFFSET
 from qvz_tpu_torch.format import container, container_v2
 from qvz_tpu_torch.native import runtime as rt
 from qvz_tpu_torch.ops.well import WellState
@@ -322,6 +322,54 @@ def _flush_drop(mm: np.ndarray, row_bytes: int, lo: int, hi: int) -> None:
         end = hi * row_bytes // page * page
         if end > start:
             raw.flush(start, end - start)
+            raw.madvise(_mmap.MADV_DONTNEED, start, end - start)
+    except (AttributeError, ValueError, OSError):
+        pass  # advisory only
+
+
+# ---------------------------------------------------------------------------
+# A quality file read through a memmap a range of rows at a time (the
+# helpers of qvz_tpu.pipeline.streaming, which the streaming encode and
+# the multi-host workers share; here, so that a worker that needs no
+# device does not import torch).
+
+
+def _geometry(path: str):
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        first = f.readline()
+    columns = len(first) - 1
+    if columns <= 0:
+        raise ValueError("empty or malformed quality file")
+    return size // (columns + 1), columns
+
+
+def _rows(mm: np.ndarray, columns: int, lo: int, hi: int) -> np.ndarray:
+    """Rows [lo, hi) as 0-based symbols (one chunk copy)."""
+    return np.ascontiguousarray(
+        mm.reshape(-1, columns + 1)[lo:hi, :columns] - PHRED_OFFSET)
+
+
+def _rows_t(mm: np.ndarray, columns: int, lo: int, hi: int) -> np.ndarray:
+    """Rows [lo, hi) as a (cols, n) column-major symbol buffer: one
+    shard-sized allocation (transpose, then the Phred strip in place)."""
+    dt = np.ascontiguousarray(
+        mm.reshape(-1, columns + 1)[lo:hi, :columns].T)
+    dt -= PHRED_OFFSET  # uint8 wrap semantics, as everywhere
+    return dt
+
+
+def _drop_pages(mm: np.ndarray, columns: int, lo: int, hi: int) -> None:
+    """Release the page-cache pages backing rows [lo, hi), so the
+    streaming pass's resident set stays at about a chunk."""
+    try:
+        import mmap as _mmap
+
+        raw = mm._mmap  # np.memmap's underlying mmap object
+        page = 4096
+        start = (lo * (columns + 1)) // page * page
+        end = hi * (columns + 1) // page * page
+        if end > start:
             raw.madvise(_mmap.MADV_DONTNEED, start, end - start)
     except (AttributeError, ValueError, OSError):
         pass  # advisory only

@@ -14,24 +14,44 @@ from qvz_tpu_torch.constants import MAX_LINES_PER_BLOCK
 from qvz_tpu_torch.utils.glibc_rand import GlibcRand
 
 
-def seed_centroids(data: np.ndarray, n_clusters: int,
-                   rand: GlibcRand | None = None,
-                   verbose: bool = False) -> np.ndarray:
-    """Pick initial centroids exactly like the reference (cluster.c:192).
-    verbose mirrors the reference's seed print (cluster.c:202-204)."""
+def seed_rows(n: int, n_clusters: int, rand: GlibcRand | None = None,
+              verbose: bool = False) -> list[int]:
+    """The reads whose rows seed the centroids, drawn exactly like the
+    reference (cluster.c:192) from n reads. verbose mirrors the
+    reference's seed print (cluster.c:202-204)."""
     if rand is None:
         rand = GlibcRand(1)
-    n = data.shape[0]
     block_count = -(-n // MAX_LINES_PER_BLOCK)
-    means = np.empty((n_clusters, data.shape[1]), dtype=np.uint8)
-    for j in range(n_clusters):
+    rows = []
+    for _ in range(n_clusters):
         block_id = rand.rand() % block_count
         count = min(MAX_LINES_PER_BLOCK, n - block_id * MAX_LINES_PER_BLOCK)
         line_id = rand.rand() % count
         if verbose:
             print(f"Chose block {block_id}, line {line_id}.")
-        means[j] = data[block_id * MAX_LINES_PER_BLOCK + line_id]
-    return means
+        rows.append(block_id * MAX_LINES_PER_BLOCK + line_id)
+    return rows
+
+
+def seed_centroids(data: np.ndarray, n_clusters: int,
+                   rand: GlibcRand | None = None,
+                   verbose: bool = False) -> np.ndarray:
+    """The initial centroids, the rows of ``seed_rows``."""
+    return data[seed_rows(data.shape[0], n_clusters, rand, verbose)]
+
+
+def update_means(means: np.ndarray, sums: np.ndarray, counts: np.ndarray,
+                 threshold: float, verbose: bool = False):
+    """One Lloyd update as the reference makes it (cluster.c:212-243):
+    the integer means sums // max(count, 1), and whether the largest
+    squared movement of a mean is at most threshold (the stop). Returns
+    (new means int64, stop)."""
+    new_means = sums // np.maximum(counts, 1)[:, None]
+    diff = (new_means - means).astype(np.float64)
+    moved = float((diff * diff).sum(axis=1).max())
+    if verbose:
+        verbose_iteration(means, new_means)
+    return new_means, moved <= threshold
 
 
 def verbose_iteration(means_before: np.ndarray,

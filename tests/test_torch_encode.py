@@ -4,6 +4,7 @@ host path for pinned shard counts, priming on and off, one cluster and
 -c 3/-c 4; reconstructions equal to the C reference's golden .u files;
 the CLI round trips."""
 
+import json
 import os
 import re
 import subprocess
@@ -213,8 +214,9 @@ def test_conditional_counts_match_jax_and_host():
 
 @pytest.mark.parametrize("kw", [dict(reuse_blocks=b"")], ids=["reuse"])
 def test_outside_the_slice_raises(kw):
+    """reuse_blocks is ported: empty blocks are refused as malformed."""
     data = _data(100, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="malformed codebook blocks"):
         port.encode(data, DIST, device="cpu", **kw)
 
 
@@ -288,18 +290,167 @@ def test_cli_round_trip(golden_dir, tmp_path):
     assert q.read_bytes() == host.compressed
 
 
-@pytest.mark.parametrize("flags", [["--hosts", "2"], ["--streaming"],
-                                   ["--reuse-books", "x.q"],
-                                   ["--profile", "phases"]],
-                         ids=["hosts", "streaming", "reuse", "profile"])
-def test_cli_flags_outside_the_slice(golden_dir, tmp_path, capsys, flags):
-    rc = cli.main(["qvz_tpu_torch", *flags, "--device", "cpu",
-                   str(golden_dir / "tiny.in"), str(tmp_path / "o")])
-    out = capsys.readouterr().out
-    assert rc == 1
-    assert "not ported" in out and "ROADMAP" in out
-    assert f"'Modules to port' {cli._NOT_PORTED[flags[0]]}" in out
-    assert not (tmp_path / "o").exists()
+def _run_cli(mod, *args) -> tuple[int, str]:
+    """One in-process run of a CLI's main; returns (rc, stdout)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main([mod.__name__, *args])
+    return rc, buf.getvalue()
+
+
+def _s_line(out: str) -> list[str]:
+    """The -s line's rate, distortion and size (not its time)."""
+    f = [x.strip() for x in out.strip().splitlines()[-1].split(",")]
+    assert f[0] == "rate" and f[2] == "distortion" and f[6] == "size", out
+    return [f[1], f[3], f[7]]
+
+
+@pytest.fixture(scope="module")
+def cli_input(tmp_path_factory):
+    """1,500 x 16 reads as a quality file."""
+    path = tmp_path_factory.mktemp("cli") / "in"
+    path.write_bytes(np.concatenate(
+        [_data(1500, 16, seed=21) + 33, np.full((1500, 1), 10, np.uint8)],
+        1).tobytes())
+    return path
+
+
+def test_cli_streaming_matches_qvz_tpu(cli_input, tmp_path):
+    """--streaming: the container and -s line of qvz_tpu's --streaming
+    (its host legs) for the same shard count, and -u equal."""
+    from qvz_tpu import cli as jx_cli
+    flags = ["-f", "0.5", "-c", "2", "--shards", "6", "--debug-seed", "-s",
+             "--streaming"]
+    rc, out = _run_cli(cli, *flags, "--device", "cpu", "-u",
+                       str(tmp_path / "p.u"), str(cli_input),
+                       str(tmp_path / "p.q"))
+    assert rc == 0, out
+    jrc, jout = _run_cli(jx_cli, *flags, "-u", str(tmp_path / "j.u"),
+                         str(cli_input), str(tmp_path / "j.q"))
+    assert jrc == 0, jout
+    assert (tmp_path / "p.q").read_bytes() == (tmp_path / "j.q").read_bytes()
+    assert (tmp_path / "p.u").read_bytes() == (tmp_path / "j.u").read_bytes()
+    assert _s_line(out) == _s_line(jout)
+
+
+@pytest.mark.parametrize("extra,streams", [
+    ([], True), (["--shards", "1"], False), (["-u", "recon"], False)],
+    ids=["auto", "shards1", "recon"])
+def test_cli_auto_streaming(cli_input, tmp_path, monkeypatch, extra,
+                            streams):
+    """At QVZ_TPU_STREAM_MIN_BYTES or more the default encode streams,
+    as qvz_tpu's does; never at --shards 1 (the v1 container) or with -u.
+    Either way the container is the in-memory encode's."""
+    monkeypatch.setenv("QVZ_TPU_STREAM_MIN_BYTES", "1000")
+    monkeypatch.chdir(tmp_path)
+    args = ["-v", "--debug-seed", "--device", "cpu", *extra]
+    rc, out = _run_cli(cli, *args, str(cli_input), "a.q")
+    assert rc == 0, out
+    assert ("Streaming encode:" in out) == streams
+    monkeypatch.setenv("QVZ_TPU_STREAM_MIN_BYTES", str(1 << 40))
+    # the streamed plan at --shards 0: as many shards as CPUs
+    pin = ["--shards", str(os.cpu_count() or 1)] if streams else []
+    rc, out = _run_cli(cli, *args, *pin, str(cli_input), "b.q")
+    assert rc == 0 and "Streaming encode:" not in out
+    assert (tmp_path / "a.q").read_bytes() == (tmp_path / "b.q").read_bytes()
+
+
+def test_cli_hosts_matches_qvz_tpu(cli_input, tmp_path):
+    """--hosts 2 encodes across two worker processes, byte-equal to
+    qvz_tpu's --hosts 2 and to the port's one-process encode; -x --hosts
+    2 decodes it across two worker processes to the host decoder's
+    bytes."""
+    from qvz_tpu import cli as jx_cli
+    flags = ["-f", "0.5", "--shards", "30", "--debug-seed", "-s"]
+    rc, out = _run_cli(cli, *flags, "--hosts", "2", "--device", "cpu",
+                       str(cli_input), str(tmp_path / "p.q"))
+    assert rc == 0, out
+    _, jout = _run_cli(jx_cli, *flags, "--hosts", "2", str(cli_input),
+                       str(tmp_path / "j.q"))
+    _, one = _run_cli(cli, *flags, "--device", "cpu", str(cli_input),
+                      str(tmp_path / "one.q"))
+    comp = (tmp_path / "p.q").read_bytes()
+    assert comp == (tmp_path / "j.q").read_bytes()
+    assert comp == (tmp_path / "one.q").read_bytes()
+    assert _s_line(out)[::2] == _s_line(jout)[::2] == _s_line(one)[::2]
+    rc, out = _run_cli(cli, "-x", "-v", "--hosts", "2", str(tmp_path / "p.q"),
+                       str(tmp_path / "p.dec"))
+    assert rc == 0 and "on 2 hosts" in out, out
+    assert (tmp_path / "p.dec").read_bytes() \
+        == host_decode.decode(comp).tobytes()
+
+
+def test_cli_reuse_books_matches_qvz_tpu(cli_input, golden_dir, tmp_path):
+    """--reuse-books takes the codebooks of another container (here one
+    designed from another input) and gives qvz_tpu's container for the
+    same books."""
+    from qvz_tpu import cli as jx_cli
+    other = tmp_path / "other.in"
+    other.write_bytes(np.concatenate(
+        [_data(1000, 16, seed=22) + 33, np.full((1000, 1), 10, np.uint8)],
+        1).tobytes())
+    for books_flags in (["--shards", "30"], ["--shards", "1"]):
+        assert _run_cli(cli, "-c", "2", "--debug-seed", "--device", "cpu",
+                        *books_flags, str(other),
+                        str(tmp_path / "books.q"))[0] == 0
+        flags = ["-c", "2", "--shards", "30", "--debug-seed", "-s",
+                 "--reuse-books", str(tmp_path / "books.q")]
+        rc, out = _run_cli(cli, *flags, "--device", "cpu", "--profile",
+                           str(tmp_path / "prof"), str(cli_input),
+                           str(tmp_path / "p.q"))
+        assert rc == 0, out
+        jrc, jout = _run_cli(jx_cli, *flags, "--no-jax", str(cli_input),
+                             str(tmp_path / "j.q"))
+        assert jrc == 0, jout
+        assert (tmp_path / "p.q").read_bytes() \
+            == (tmp_path / "j.q").read_bytes()
+        assert _s_line(out) == _s_line(jout)
+        # the other input's books open the blocks (after the QVZ2
+        # header's 24 bytes; the v1 header has 9)
+        books = (tmp_path / "books.q").read_bytes()
+        skip = 9 if books_flags[1] == "1" else 24
+        assert (tmp_path / "p.q").read_bytes()[24:88] == books[skip:skip + 64]
+        phases = json.loads((tmp_path / "prof" / "phases.json").read_text())
+        assert phases["phase_seconds"]["stats"] == 0.0
+    rc, out = _run_cli(cli, "-c", "3", "--device", "cpu", "--reuse-books",
+                       str(tmp_path / "books.q"), str(cli_input),
+                       str(tmp_path / "x.q"))
+    assert rc == 1 and "cluster count mismatch" in out
+
+
+def test_cli_profile_writes_qvz_tpus_keys(cli_input, tmp_path):
+    """--profile D writes D/phases.json with qvz_tpu's keys."""
+    from qvz_tpu import cli as jx_cli
+    for mod, d, extra in ((cli, "p", ["--device", "cpu"]),
+                          (jx_cli, "j", ["--no-jax"])):
+        rc, out = _run_cli(mod, "--shards", "30", "--debug-seed",
+                           "--profile", str(tmp_path / d), *extra,
+                           str(cli_input), str(tmp_path / f"{d}.q"))
+        assert rc == 0, out
+    got = json.loads((tmp_path / "p" / "phases.json").read_text())
+    want = json.loads((tmp_path / "j" / "phases.json").read_text())
+    assert set(got) == set(want)
+    for key in ("lines", "columns", "rate", "payload_bytes"):
+        assert got[key] == want[key], key
+    assert set(got["phase_seconds"]) >= {"cluster", "stats", "design",
+                                         "quantize"}
+    assert set(got["device_seconds"]) <= set(got["phase_seconds"])
+
+
+def test_api_compress_hosts(cli_input, tmp_path):
+    """api.compress(hosts=2) runs the multi-host driver on `device`: the
+    one-process container for the same shard count."""
+    from qvz_tpu_torch import api
+    st = api.compress(str(cli_input), str(tmp_path / "h.q"), hosts=2,
+                      shards=30, clusters=2, debug_seed=True, device="cpu")
+    assert st["hosts"] == 2 and st["worker_launches"] == {"hist": [0, 0]}
+    one = api.compress(str(cli_input), str(tmp_path / "one.q"), shards=30,
+                       clusters=2, debug_seed=True, device="cpu")
+    assert (tmp_path / "h.q").read_bytes() \
+        == (tmp_path / "one.q").read_bytes()
+    assert st["payload_bytes"] == one.payload_bytes
 
 
 def test_cli_v1_round_trip(golden_dir, tmp_path):

@@ -167,3 +167,65 @@ def test_goldens_decode_and_reencode(golden_dir, name, inp, clusters, mode,
     out = host.encode(data, matrix, n_clusters=clusters, mode=mode,
                       ratio=ratio, well_state=WellState.debug(), shards=1)
     assert out.compressed == golden
+
+
+def test_kmeans_iter_matches_qvz_tpu():
+    """One Lloyd iteration over a row range (the drivers' chunked
+    k-means): assignment, sums and counts equal to qvz_tpu's."""
+    data = _data(5000, 12, seed=9)
+    means = data[[3, 1000, 4000, 4000]].astype(np.int64)  # a tie too
+    for got, want in zip(rt.kmeans_iter(data, means),
+                         jrt.kmeans_iter(data, means)):
+        assert got.dtype == want.dtype
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_clusters", [1, 3])
+def test_stats_host_accumulate_matches_qvz_tpu(n_clusters):
+    """Chunked statistics added into uint64 accumulators: the sums of
+    qvz_tpu's, and of one pass over all the rows."""
+    data = _data(3000, 9, seed=6)
+    clusters = ((np.arange(3000) * 7) % n_clusters).astype(np.uint8)
+    cl = clusters if n_clusters > 1 else None
+    acc = [(np.zeros((n_clusters, 72), np.uint64),
+            np.zeros((n_clusters, 8, 72, 72), np.uint64)) for _ in range(2)]
+    for lo in range(0, 3000, 700):
+        part = None if cl is None else cl[lo:lo + 700]
+        rt.stats_host(data[lo:lo + 700], part, n_clusters,
+                      accumulate=acc[0])
+        jrt.stats_host(data[lo:lo + 700], part, n_clusters,
+                       accumulate=acc[1])
+    whole = rt.stats_host(data, cl, n_clusters)
+    for a, b, w in zip(acc[0], acc[1], whole):
+        assert a.dtype == np.uint64
+        assert np.array_equal(a, b) and np.array_equal(a, w)
+
+
+@pytest.mark.parametrize("n_clusters", [1, 3])
+def test_encode_precomputed_want_bank_matches_qvz_tpu(n_clusters):
+    """The warmup shard coded from precomputed streams with its bank
+    returned (the streaming encode's primed path): payload and bank equal
+    to qvz_tpu's, and the payload to the one coded without the bank."""
+    data = _data(2000, 10, seed=7)
+    cl = ((np.arange(2000) * 5) % 3).astype(np.uint8) \
+        if n_clusters > 1 else None
+    c0, cond = rt.stats_host(data, cl, n_clusters)
+    dist = make_matrix(DISTORTION_MSE)
+    mine = rt.Design(c0, cond, MODE_RATIO, 0.5, dist).tables()
+    theirs = jrt.Design(c0, cond, MODE_RATIO, 0.5,
+                        jx_matrix(DISTORTION_MSE)).tables()
+    state = np.asarray(WellState.debug().state, dtype=np.uint32)
+    md, qs, _, _ = rt.quantize_colmajor(
+        mine, np.ascontiguousarray(data.T), cl, state)
+    pay, bank = rt.encode_precomputed_colmajor(mine, md, qs, cl, 2000,
+                                               want_bank=True)
+    jpay, jbank = jrt.encode_precomputed_colmajor(theirs, md, qs, cl, 2000,
+                                                  want_bank=True)
+    assert pay == jpay and np.array_equal(bank, jbank)
+    assert pay == rt.encode_precomputed_colmajor(mine, md, qs, cl, 2000)
+    assert np.array_equal(bank, rt.bank_from_stream(mine, md, qs, cl, 2000))
+    # the bank primes the next shard as qvz_tpu's does
+    assert rt.encode_precomputed_colmajor(mine, md, qs, cl, 2000,
+                                          init_bank=bank) \
+        == jrt.encode_precomputed_colmajor(theirs, md, qs, cl, 2000,
+                                           init_bank=jbank)

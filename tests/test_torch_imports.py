@@ -53,6 +53,10 @@ with tempfile.TemporaryDirectory() as td:
     r = subprocess.run([sys.executable, "-m", "qvz_tpu_torch", "-x",
                         "--device", "cpu", q, x])
     assert r.returncode == 0 and open(x, "rb").read() == dec.tobytes()
+    from qvz_tpu_torch.parallel.multihost import encode_multihost
+    mh, st = encode_multihost(src, n_hosts=2, shards=4,
+                              well_state=WellState.debug(), device="cpu")
+    assert mh == out.compressed and st["hosts"] == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "qvz_tpu"
              or m.startswith("qvz_tpu."))
@@ -90,7 +94,8 @@ def test_no_import_of_qvz_tpu(path):
 
 def test_port_never_imports_jax():
     """Every port module, the device and host encode and decode, a v1
-    decode and the CLI (in process and as python -m qvz_tpu_torch -x)
+    decode, the CLI (in process and as python -m qvz_tpu_torch -x) and a
+    2-host encode (its workers started from the port's launch strings)
     run, and neither qvz_tpu nor jax is then in sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
