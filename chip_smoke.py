@@ -131,17 +131,38 @@ Phases:
      -c 3 -T 4 at that shard count, byte-equal to phase 10's primed
      container; decode_multihost at 2 hosts of phase 5's container,
      byte-equal to the host decoder
+ 19. the multi-device encode (pipeline.encode.encode(mesh=...),
+     parallel/sharded.py) with several blocks of reads on the one card:
+     -c 3 -T 4 primed at phase 10's shard count over
+     make_mesh(devices=["cuda:0"] * 4), byte-equal to phase 10's primed
+     container, and -c 1 primed at --shards 0 over 2 blocks, byte-equal to
+     phase 5's; K4 (each step), K3, K1 and K2a + K2b launched for every
+     block, counted call by call; the -c 3 container decoded on the card
+     (K5) to the host decoder's bytes; each encode's time and phase split
+     beside the one-device median. A check of correctness on one card,
+     not a multi-GPU measurement
+ 20. torch.distributed (parallel/distributed.py): two child interpreters
+     over Gloo, each with half of phase 2's reads and phase 6's k-means
+     ids, K3 on the card and one all-reduce: both get phase 8's counts
+     (C = 3) and design identical codebook blocks (sha256 printed), each
+     on the card that initialize picks for it; then world size 1 over
+     NCCL in this process, equal to the same counts
+ 21. the tools (host only, no kernel): transcode of phase 5's primed
+     container to v1, byte-equal to the port's --shards 1 encode of the
+     input, and back to QVZ2 at the device lane count, byte-equal to
+     phase 5's container; python -m qvz_tpu_torch.tools.mse_check of the
+     decoded text against phase 5's -u reconstruction (distortion 0) and
+     of the input against it (phase 5's -s distortion)
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns, one call each. Each kernel's bound
 (qvz_tpu_torch.roofline) is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 the card's peak rate: for the microbenchmark's kernels the slowest pipe
-for the SASS of their inner loop; for K1, K2a, K2b, K3 and K4 the
+for the SASS of their inner loop; for K1, K2a, K2b, K3, K4 and K5 the
 slowest pipe for the least instructions of each of their loops' trips in
-their SASS times this run's trips; for K5 still an estimated count of int32
-instructions over the card's issue rate, SMs x 128 x the top SM clock. A
-kernel faster than its bound fails, as does every other check, so the
+their SASS times this run's trips (K5's serial steps and count search;
+k5_bound). A kernel faster than its bound fails, as does every other check, so the
 script exits non-zero. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}. Without a CUDA
 device, or without the rest of the repository, the script fails before
@@ -158,26 +179,42 @@ import sys
 import time
 
 
-# The lane decoder takes about STEP_OPS int32 instructions a step (the
-# model lookup, the count search and update, two products and divisions,
-# the renormalisation; csrc/decoder.cu): an estimate, not counted from its
-# SASS. K2's bounds are counted from its SASS (coder_bounds).
-STEP_OPS = 100
 LANES_SWEEP = (32, 16, 8, 4, 2, 1)
 # Phase 16's cluster count: at 200,000 x 20 the first K above 149 whose
 # plan does not fit K5's shared-memory layout; the phase checks both.
 BIG_K = 150
 
 
-def k5_bound(lanes, cols: int, ops_rate: float):
-    """K5 over all columns: the lanes' draws, payloads and cluster ids in,
-    the text rows and states out; STEP_OPS a step."""
-    from qvz_tpu_torch.roofline import bound
+def k5_bound(gpu, lanes, cols: int, live: int, sum_x: int):
+    """K5's bound from its counted SASS (the layout the main path runs,
+    decode_lanes_kernel<0>): each loop's least trip by pipe
+    (microbench.trip_min) times its trips on this run's data, the same
+    lanes and steps as K2's (coder_phase's live steps and the sum of their
+    symbol indices). The serial steps, cols x n_lines trips, the live ones
+    through the reciprocal; the count search, sum_x trips. The chunks'
+    model resolution and output loops and the column staging are not
+    counted, so the bound is lower than the work. Bytes: the lanes'
+    draws, payloads and cluster ids in, the text rows and the lanes'
+    states out."""
+    from qvz_tpu_torch import microbench as mb
+    f = _sass("decode_lanes_kernelILi0E")
+    step = _loop(mb, f, "MUFU.RCP64H")
+    search = _loop(mb, f, "LDS.U16", inside=step)
+    for (h, e), op in ((step, "MUFU.RCP64H"), (search, "LDS.U16")):
+        nested = [(a, b) for a, b in mb.loop_spans(f).items()
+                  if h < a and b <= e]
+        ones = [i for i in f if h <= i[0] <= e and i[1].startswith(op)
+                and not any(a <= i[0] <= b for a, b in nested)]
+        require(len(ones) == 1, f"K5's loop at {h:#x} holds one {op} (not "
+                f"unrolled): {len(ones)}")
     n = int(sum(lanes.lane_counts))
     nbytes = (n * cols + int(lanes.pays.lens.sum())
               + (n if lanes.cl is not None else 0) + n * (cols + 1)
               + len(lanes.lane_counts) * (4 + 5) * 8)
-    return bound(nbytes, n * cols * STEP_OPS, ops_rate)
+    return _pipe_bound(gpu, [
+        (cols * n - live, mb.trip_min(f, step[0])),
+        (live, mb.trip_min(f, step[0], "MUFU.RCP64H")),
+        (sum_x, mb.trip_min(f, search[0]))], nbytes)
 
 
 def _loop(mb, insns, has: str, inside=None, without=None, outside=None):
@@ -487,7 +524,7 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
                       for k, (a, b) in sweep.items()), flush=True)
     return {"err": max(err_a, err_b), "a_ms": a_ms, "a_plain_ms": a_plain_ms,
             "b_ms": b_ms, "b_plain_ms": b_plain_ms, "bounds": bounds,
-            "cycles": cycles}
+            "cycles": cycles, "live": live, "sum_x": sum_x}
 
 
 def proc_status_kb(field: str) -> int:
@@ -834,6 +871,8 @@ def clustered_phases(torch, np, data, dist, gpu) -> dict:
         n, cols, port.device_lane_count(n), True, WellState.debug())
     draws = host._shard_draws(states, counts, cols)
     draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
+    res["counts8"] = (c0.cpu().numpy(), cond.cpu().numpy())
+    res["ids"] = clusters
     res["k1"], (mid, qs, _) = k1_phase(torch, tables, data_t, draws_t, cl_t,
                                        gpu, "[8]")
     del draws_t
@@ -915,10 +954,12 @@ def clustered_phases(torch, np, data, dist, gpu) -> dict:
     return res
 
 
-def decode_phases(torch, np, containers, dist, rate) -> dict:
+def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
     """Phases 11-13: the device decode of the four containers of phases 5
-    and 10, and a container whose lanes reach the rescale. Returns K5's
-    error and times, the decodes' medians and their kernel launches."""
+    and 10, and a container whose lanes reach the rescale. k2: phase 4's
+    record of the -c 1 primed lanes (their live steps and symbol indices,
+    for K5's bound). Returns K5's error and times, the decodes' medians
+    and their kernel launches."""
     from qvz_tpu_torch import _build
     from qvz_tpu_torch.ops import decoder_device as dd
     from qvz_tpu_torch.ops.well import WellState
@@ -978,10 +1019,12 @@ def decode_phases(torch, np, containers, dist, rate) -> dict:
                       int((oa.long() - opa.long()).abs().max()))
             require(err == 0, f"{name}: K5 equals its plain version over "
                     "all columns")
-            res["bound"] = k5_bound(lanes, cols, rate)
+            res["bound"] = k5_bound(gpu, lanes, cols, k2["live"],
+                                    k2["sum_x"])
             line += (f"; plain over all columns {res['plain_all_ms']:.1f} "
                      f"ms, equal; bound {res['bound'][0]:.4f} ms "
-                     f"({res['bound'][1]})")
+                     f"({res['bound'][1]}, {res['bound'][2]}; SASS "
+                     f"instructions by pipe {json.dumps(res['bound'][3])})")
         print(line, flush=True)
         res["err"] = max(res["err"], err)
         res["ms"][name], res["plain_ms"][name] = k5, k5_plain
@@ -1566,6 +1609,322 @@ def multihost_phase(np, data, containers) -> dict:
         shutil.rmtree(td, ignore_errors=True)
 
 
+class CallLaunches:
+    """Records the kernel launches of each call of some functions (module,
+    name): the launches counted by _build.LAUNCHES between a call's start
+    and end, one Counter a call, by function. A context manager that
+    restores the functions after."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls = {name: [] for _, name in targets}
+        self.saved = []
+
+    def __enter__(self):
+        from qvz_tpu_torch import _build
+
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                before = dict(_build.LAUNCHES)
+                out = _fn(*a, **kw)
+                self.calls[_name].append(
+                    {k: v - before.get(k, 0)
+                     for k, v in _build.LAUNCHES.items()
+                     if v != before.get(k, 0)})
+                return out
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def mesh_phase(torch, np, data, dist, containers, e2e, k4_iters) -> dict:
+    """Phase 19: the multi-device encode with several blocks of reads on
+    the one card. -c 3 -T 4 primed at phase 10's shard count over 4
+    blocks, byte-equal to phase 10's primed container; -c 1 primed at
+    --shards 0 over 2 blocks, byte-equal to phase 5's. Every block's K4
+    steps, K3, K1, K2a and K2b launches are counted call by call; the -c 3
+    container decodes on the card (K5) to the host decoder's bytes.
+    Returns the launches, the kernels' under their _build names."""
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.ops import coder_device, kmeans, quantize
+    from qvz_tpu_torch.ops import stats as ts
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.parallel.mesh import make_mesh
+    from qvz_tpu_torch.pipeline import decode as port_dec
+    from qvz_tpu_torch.pipeline import encode as port
+    from qvz_tpu_torch.pipeline import host
+
+    n, cols = data.shape
+    mb = n * (cols + 1) / 1e6
+    launches = {}
+    cases = (("-c 3 prime=True", 4,
+              dict(n_clusters=3, cluster_threshold=4.0,
+                   shards=port.device_lane_count(n))),
+             ("-c 1 prime=True", 2, dict(shards=0)))
+    for name, blocks, kw in cases:
+        mesh = make_mesh(devices=["cuda:0"] * blocks)
+        _build.LAUNCHES.clear()
+        with CallLaunches([(kmeans, "_step_packed"),
+                           (ts, "conditional_counts_t"),
+                           (quantize, "quantize_t_device"),
+                           (coder_device, "code_lanes")]) as rec:
+            t = time.perf_counter()
+            out = port.encode(data, dist, well_state=WellState.debug(),
+                              want_recon=False, prime=True, mesh=mesh, **kw)
+            secs = time.perf_counter() - t
+        for k, v in _build.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        require(out.compressed == containers[name][0],
+                f"[19] {name} over {blocks} blocks: byte-equal to the "
+                "one-device container")
+        steps = k4_iters if kw.get("n_clusters", 1) > 1 else 0
+        per = {"kmeans": ("_step_packed", blocks * steps),
+               "hist": ("conditional_counts_t", blocks),
+               "quantize": ("quantize_t_device", blocks),
+               "coder_triples": ("code_lanes", blocks),
+               "coder_chain": ("code_lanes", blocks)}
+        for kernel, (fn, calls) in per.items():
+            got = [c.get(kernel, 0) for c in rec.calls[fn]]
+            require(len(got) == calls and all(g >= 1 for g in got),
+                    f"[19] {name}: {kernel} launched in each of the "
+                    f"{calls} calls of {fn} ({got})")
+        phases = {k: round(v, 6) for k, v in out.stats.phase_seconds.items()}
+        print(f"[19] {name} over make_mesh(devices=['cuda:0'] * {blocks}): "
+              f"byte-equal to the one-device container in {secs:.4f} s = "
+              f"{mb / secs:.1f} MB/s, one run (the one-device median "
+              f"{e2e[name]:.4f} s); launches by call: "
+              + "; ".join(f"{fn} {rec.calls[fn]}" for fn in rec.calls)
+              + f"; phases {json.dumps(phases)}; a check of correctness on "
+              "one card, not a multi-GPU measurement", flush=True)
+        if name.startswith("-c 3"):
+            _build.LAUNCHES.clear()
+            st = {}
+            got = port_dec.decode(out.compressed, device="cuda", stats=st)
+            launches["decoder"] = (launches.get("decoder", 0)
+                                   + _build.LAUNCHES["decoder"])
+            require(_build.LAUNCHES["decoder"] >= 1
+                    and st["fallback_lanes"] == 0
+                    and np.array_equal(got, host.decode(out.compressed)),
+                    "[19] the -c 3 mesh container decodes on the card (K5) "
+                    "to the host decoder's bytes")
+            print(f"[19] its decode on the card: byte-equal to the host "
+                  f"decoder, {st['lanes']} lanes, 0 flagged, decoder "
+                  f"launches {_build.LAUNCHES['decoder']}", flush=True)
+    return launches
+
+
+# A child interpreter of phase 20 (and of scripts/mesh_check_torch.py):
+# one rank of a process group over the backend argv[5], on its own card
+# (``distributed.initialize`` picks it), K3 over its share of the reads
+# with their k-means ids and one all-reduce; prints its card, its K3
+# launches and the sha256 of the counts and of the codebook blocks
+# designed from them.
+DIST_CHILD = r"""
+import hashlib, json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[6])
+rank, world, port, src, backend = (int(sys.argv[1]), int(sys.argv[2]),
+                                   sys.argv[3], sys.argv[4], sys.argv[5])
+from qvz_tpu_torch import _build
+from qvz_tpu_torch.constants import DISTORTION_MSE, MODE_RATIO
+from qvz_tpu_torch.native import runtime as rt
+from qvz_tpu_torch.ops.distortion import make_matrix
+from qvz_tpu_torch.parallel import distributed
+data = np.load(src + ".data.npy", mmap_mode="r")
+ids = np.load(src + ".ids.npy", mmap_mode="r")
+lo, hi = rank * len(data) // world, (rank + 1) * len(data) // world
+distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank,
+                       backend=backend, device="cuda")
+c0, cond = distributed.distributed_conditional_counts(data[lo:hi],
+                                                      ids[lo:hi], 3)
+import torch.distributed
+torch.distributed.destroy_process_group()
+blocks = rt.Design(c0, cond, MODE_RATIO, 0.5,
+                   make_matrix(DISTORTION_MSE)).serialized()
+print(json.dumps({"rank": rank, "rows": hi - lo,
+                  "device": str(distributed.rank_device()),
+                  "hist": _build.LAUNCHES["hist"],
+                  "c0": hashlib.sha256(c0.tobytes()).hexdigest(),
+                  "cond": hashlib.sha256(cond.tobytes()).hexdigest(),
+                  "blocks": hashlib.sha256(blocks).hexdigest()}))
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(np, data, ids, counts, dist, world: int, backend: str,
+              cards: int, tag: str) -> dict:
+    """`world` DIST_CHILD interpreters over `backend`, each with an even
+    share of the reads and their k-means ids: every rank must get
+    `counts`, the (counts0, cond) of all the reads, design the same
+    codebook blocks, launch K3 once and run on card rank % cards. Returns
+    the ranks' seconds with their start, rows and K3 launches."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from qvz_tpu_torch.constants import MODE_RATIO
+    from qvz_tpu_torch.native import runtime as rt
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    c0, cond = counts
+    want = {"c0": hashlib.sha256(c0.tobytes()).hexdigest(),
+            "cond": hashlib.sha256(cond.tobytes()).hexdigest(),
+            "blocks": hashlib.sha256(rt.Design(
+                c0, cond, MODE_RATIO, 0.5, dist).serialized()).hexdigest()}
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    td = tempfile.mkdtemp(prefix="ranks_", dir=os.path.join(root, "build"))
+    t = time.perf_counter()
+    try:
+        src = os.path.join(td, "in")
+        np.save(src + ".data.npy", data)
+        np.save(src + ".ids.npy", ids)
+        port = str(_free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DIST_CHILD, str(r), str(world), port, src,
+             backend, root], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                require(p.returncode == 0, f"{tag} a {backend} rank ran: "
+                        f"{err[-3000:]}")
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    secs = time.perf_counter() - t
+    for o in outs:
+        require({k: o[k] for k in want} == want,
+                f"{tag} {backend} rank {o['rank']} ({o['rows']} rows): "
+                "counts and codebook blocks of all the reads")
+        require(o["hist"] == 1, f"{tag} rank {o['rank']} launched K3 once")
+        require(o["device"] == f"cuda:{o['rank'] % cards}",
+                f"{tag} rank {o['rank']} ran on its own card "
+                f"({o['device']})")
+    print(f"{tag} {world} ranks over {backend}: counts and codebook blocks "
+          f"of all the reads (sha256 c0 {want['c0'][:16]}, cond "
+          f"{want['cond'][:16]}, blocks {want['blocks'][:16]} in every "
+          f"rank), K3 once a rank, cards {[o['device'] for o in outs]}, "
+          f"{secs:.3f} s with the children's start", flush=True)
+    return {"seconds": secs, "rows": [o["rows"] for o in outs],
+            "hist": sum(o["hist"] for o in outs)}
+
+
+def distributed_phase(np, data, ids, counts, dist) -> dict:
+    """Phase 20: two child interpreters over Gloo on the one card, each
+    with half of the reads and their k-means ids: both get `counts`
+    (phase 8's) and design the same codebook blocks; then world size 1
+    over NCCL in this process. Returns the K3 launches."""
+    import torch.distributed as tdist
+
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.parallel import distributed
+
+    c0, cond = counts
+    ranks = run_ranks(np, data, ids, counts, dist, 2, "gloo", 1, "[20]")
+    _build.LAUNCHES.clear()
+    t1 = time.perf_counter()
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                           backend="nccl", device="cuda")
+    try:
+        got = distributed.distributed_conditional_counts(data, ids, 3)
+    finally:
+        tdist.destroy_process_group()
+    nccl_secs = time.perf_counter() - t1
+    require(np.array_equal(got[0], c0) and np.array_equal(got[1], cond)
+            and _build.LAUNCHES["hist"] == 1,
+            "[20] world size 1 over NCCL: the same counts, K3 once")
+    print(f"[20] world size 1 over NCCL equal in {nccl_secs:.3f} s",
+          flush=True)
+    return {"hist": ranks["hist"] + 1}
+
+
+def tools_phase(np, data, dist, containers, distortion: float) -> None:
+    """Phase 21: the host tools on the card's machine. Phase 5's primed
+    container transcoded to v1, byte-equal to the port's --shards 1
+    encode of the input, and back to QVZ2 at the device lane count,
+    byte-equal to phase 5's container; python -m
+    qvz_tpu_torch.tools.mse_check of the decoded text against phase 5's
+    -u reconstruction (0) and of the input against it (phase 5's -s
+    distortion)."""
+    import shutil
+    import tempfile
+
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline import host
+    from qvz_tpu_torch.tools import transcode
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    n, cols = data.shape
+    comp, recon = containers["-c 1 prime=True"]
+    td = tempfile.mkdtemp(prefix="smoke21_", dir=os.path.join(root, "build"))
+    try:
+        p2, p1, back = (os.path.join(td, f) for f in ("p5.q", "v1.q",
+                                                      "back.q"))
+        with open(p2, "wb") as f:
+            f.write(comp)
+        t = time.perf_counter()
+        transcode.transcode(p2, p1, "v1")
+        to_v1 = time.perf_counter() - t
+        t = time.perf_counter()
+        v1 = host.encode(data, dist, well_state=WellState.debug(), shards=1,
+                         want_recon=False).compressed
+        direct = time.perf_counter() - t
+        with open(p1, "rb") as f:
+            require(f.read() == v1, "[21] phase 5's container transcoded to "
+                    "v1 equals the port's --shards 1 encode")
+        t = time.perf_counter()
+        transcode.transcode(p1, back, "v2")
+        to_v2 = time.perf_counter() - t
+        with open(back, "rb") as f:
+            require(f.read() == comp, "[21] the v1 container transcoded "
+                    "back to QVZ2 at --shards 0 equals phase 5's")
+        text = {"in": data + 33, "dec": host.decode(comp)[:, :cols],
+                "u": recon + 33}
+        for k, v in text.items():
+            with open(os.path.join(td, k), "wb") as f:
+                f.write(np.concatenate(
+                    [v, np.full((n, 1), 10, np.uint8)], 1).tobytes())
+        figures = {}
+        for a in ("dec", "in"):
+            r = subprocess.run(
+                [sys.executable, "-m", "qvz_tpu_torch.tools.mse_check",
+                 os.path.join(td, a), os.path.join(td, "u")], cwd=root,
+                capture_output=True, text=True, timeout=300)
+            require(r.returncode == 0, f"[21] mse_check ran: {r.stderr}")
+            figures[a] = r.stdout.strip()
+            fields = figures[a].split(", ")
+            got = float(fields[fields.index("distortion") + 1])
+            want = 0.0 if a == "dec" else distortion
+            require(f"{got:.4f}" == f"{want:.4f}", f"[21] mse_check {a} "
+                    f"against the -u file: {got} (want {want:.4f})")
+        print(f"[21] transcode of phase 5's container to v1 in {to_v1:.3f} s"
+              f", byte-equal to the --shards 1 encode ({direct:.3f} s); back"
+              f" to QVZ2 at --shards 0 in {to_v2:.3f} s, byte-equal to phase"
+              f" 5's; mse_check decoded vs -u: {figures['dec']}; input vs "
+              f"-u: {figures['in']}", flush=True)
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
 def microbench_phase() -> list:
     """Phase 15: the microbenchmark's legs (qvz_tpu_torch.microbench);
     returns its three kernels' entries of the kernels line."""
@@ -1689,6 +2048,7 @@ def main() -> int:
     mb = n * (cols + 1) / 1e6
     _build.LAUNCHES.clear()
     e2e = {}
+    distortion = {}
     stats_phase = {}
     containers = {}
     for prime in (True, False):
@@ -1719,6 +2079,7 @@ def main() -> int:
                     f"prime={prime}: -s rate, distortion and size equal")
         phases = {k: round(v, 6) for k, v in fast.stats.phase_seconds.items()}
         e2e[prime] = secs
+        distortion[prime] = fast.stats.distortion
         stats_phase[prime] = fast.stats.phase_seconds["stats"]
         containers[f"-c 1 prime={prime}"] = (out.compressed,
                                              out.reconstructed)
@@ -1761,7 +2122,7 @@ def main() -> int:
     containers.update(clus.pop("containers"))
 
     # -- 11.-13. the device decode -------------------------------------------
-    dec = decode_phases(torch, np, containers, dist, rate)
+    dec = decode_phases(torch, np, containers, dist, gpu, k2)
     launches["decoder"] = dec["launches"]["decoder"]
 
     # -- 15. the integer-issue microbenchmark --------------------------------
@@ -1779,6 +2140,18 @@ def main() -> int:
         for name, k in child.items():
             launches[name] = launches.get(name, 0) + k
     launches["hist"] += sum(mh["hist"])
+    # -- 19. the multi-device encode, several blocks on the card ---------------
+    mesh = mesh_phase(torch, np, data, dist, containers,
+                      {"-c 1 prime=True": e2e[True],
+                       "-c 3 prime=True": clus["e2e"][True]},
+                      clus["k4_iters"])
+    for name, k in mesh.items():
+        launches[name] = launches.get(name, 0) + k
+    # -- 20. torch.distributed ------------------------------------------------
+    launches["hist"] += distributed_phase(np, data, clus["ids"],
+                                          clus["counts8"], dist)["hist"]
+    # -- 21. the tools --------------------------------------------------------
+    tools_phase(np, data, dist, containers, distortion[True])
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [

@@ -23,6 +23,24 @@ distortion matrices (``ops/well.py``, ``ops/distortion.py``), the
 k-means seeds and quality-file I/O (``spec/``) and the host engine
 (``pipeline/host.py``), which codes the v1 container, decodes the
 containers without lanes and is the reference of the device paths.
+
+Across devices, ``pipeline.encode.encode(..., mesh=parallel.mesh.make_mesh
+(...))`` runs the k-means, statistics, quantization and lane coding on one
+block of reads a device, merging only integer counts
+(``parallel/sharded.py``); ``parallel/distributed.py`` reduces the
+statistics across processes over torch.distributed. ``tools/`` holds the
+host-only container transcoder (v1 <-> QVZ2), the distortion checker and
+the FASTQ quality-line tool.
 """
 
 __version__ = "0.1.0"
+
+from qvz_tpu_torch.constants import (  # noqa: F401
+    ALPHABET_SIZE,
+    MODE_FIXED,
+    MODE_RATIO,
+    DISTORTION_MSE,
+    DISTORTION_LORENTZ,
+    DISTORTION_MANHATTAN,
+    DISTORTION_CUSTOM,
+)

@@ -148,6 +148,19 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
+def launch(kernel: str, what: str, device, entry, *args) -> None:
+    """Launch `kernel` through the library's `entry` on the card of
+    `device`, the device of the wrapper's tensors: that card is current
+    for the call (an entry sets its kernel's attributes and launches on
+    the current device) and its current stream goes last. A failure
+    raises; a launch adds one to LAUNCHES[kernel]."""
+    import torch     # here: the multi-host workers import this module
+    with torch.cuda.device(device):
+        rc = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, what)
+    LAUNCHES[kernel] += 1
+
+
 def smem_limits() -> tuple[int, int]:
     """(shared-memory bytes one block may ask for, bytes one SM holds) on
     the current card."""

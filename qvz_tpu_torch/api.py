@@ -5,7 +5,8 @@
     stats = qvz.compress("reads.qual", "reads.q", shards=0, device="cuda")
     qvz.decompress("reads.q", "reads.dec", device="cuda")
 
-Compression runs the device QVZ2 encode (pipeline/encode.py), or with
+Compression runs the device QVZ2 encode (pipeline/encode.py), across
+several devices with ``mesh=parallel.mesh.make_mesh(...)``, or with
 ``compress(..., hosts=N)`` the multi-host driver (parallel/multihost.py);
 decompression the device QVZ2 decode (pipeline/decode.py), which sends
 containers without lanes (v1, single-shard) to the port's host decoder.
@@ -17,7 +18,14 @@ import os
 
 import numpy as np
 
-from qvz_tpu_torch.constants import DISTORTION_MSE, MODE_RATIO
+from qvz_tpu_torch.constants import (  # noqa: F401  (re-exported)
+    DISTORTION_CUSTOM,
+    DISTORTION_LORENTZ,
+    DISTORTION_MANHATTAN,
+    DISTORTION_MSE,
+    MODE_FIXED,
+    MODE_RATIO,
+)
 from qvz_tpu_torch.ops.distortion import make_matrix
 from qvz_tpu_torch.ops.well import WellState
 
@@ -41,10 +49,13 @@ def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
                    well_seed: bytes | None = None,
                    debug_seed: bool = False,
                    prime: bool = True,
-                   device: str = "cuda"):
+                   device: str = "cuda",
+                   **encode_kw):
     """Compress raw quality-file bytes into a container. Returns
     (container bytes, stats). shards=0 picks the device lane count;
-    shards=1 gives the reference-compatible v1 container."""
+    shards=1 gives the reference-compatible v1 container. encode_kw
+    (reuse_blocks, verbose, mesh) go to pipeline.encode.encode, which
+    refuses any other keyword, qvz_tpu's use_jax among them."""
     from qvz_tpu_torch.pipeline import encode as enc_mod
     from qvz_tpu_torch.spec.pipeline import load_quality_file
 
@@ -54,7 +65,7 @@ def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
         n_clusters=clusters, mode=mode, ratio=ratio,
         cluster_threshold=cluster_threshold,
         well_state=_well(well_seed, debug_seed), shards=shards,
-        want_recon=False, prime=prime, device=device)
+        want_recon=False, prime=prime, device=device, **encode_kw)
     return out.compressed, out.stats
 
 
@@ -66,13 +77,15 @@ def decompress_bytes(container: bytes, device: str = "cuda") -> bytes:
 
 def compress(input_path: str, output_path: str, *, hosts: int = 1,
              **kwargs):
-    """File-to-file compression; kwargs as compress_bytes. hosts=N > 1
-    runs the multi-host driver (parallel/multihost.py), byte-identical
-    for the same shard count. Returns stats (a dict with hosts > 1)."""
+    """File-to-file compression; kwargs as compress_bytes, whose
+    keywords it does not name go on to pipeline.encode.encode, as in
+    qvz_tpu.api.compress. hosts=N > 1 runs the multi-host driver
+    (parallel/multihost.py), byte-identical for the same shard count,
+    which takes only compress_bytes's keywords. Returns stats (a dict
+    with hosts > 1)."""
     if hosts > 1:
         from qvz_tpu_torch.parallel.multihost import encode_multihost
-        compressed, mh = encode_multihost(
-            input_path, n_hosts=hosts,
+        mh_kw = dict(
             shards=kwargs.pop("shards", 0) or 0,
             n_clusters=kwargs.pop("clusters", 1),
             mode=kwargs.pop("mode", MODE_RATIO),
@@ -85,6 +98,11 @@ def compress(input_path: str, output_path: str, *, hosts: int = 1,
                 path=kwargs.pop("distortion_file", None)),
             prime=kwargs.pop("prime", True),
             device=kwargs.pop("device", "cuda"))
+        if kwargs:
+            raise TypeError(f"compress(hosts={hosts}) takes no "
+                            f"{sorted(kwargs)}")
+        compressed, mh = encode_multihost(input_path, n_hosts=hosts,
+                                          **mh_kw)
         with open(output_path, "wb") as f:
             f.write(compressed)
         return mh

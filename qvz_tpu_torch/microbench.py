@@ -226,10 +226,6 @@ def checksum(out: torch.Tensor) -> int:
 
 # -- wrappers -----------------------------------------------------------------
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -253,10 +249,8 @@ def issue(x: torch.Tensor, reps: int, op: str,
     lib = _build.load()
     x = x.contiguous()
     out = torch.empty((tiles, *TILE), dtype=torch.int32, device=x.device)
-    rc = lib.qvz_microbench_issue(x.data_ptr(), ISSUE_OPS[op], reps, tiles,
-                                  out.data_ptr(), _stream(x.device))
-    _build.check(rc, "issue kernel")
-    _build.LAUNCHES["issue"] += 1
+    _build.launch("issue", "issue kernel", x.device, lib.qvz_microbench_issue,
+                  x.data_ptr(), ISSUE_OPS[op], reps, tiles, out.data_ptr())
     return out
 
 
@@ -288,11 +282,9 @@ def _launch_mix(mode: str, reps: int, kw: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"{rpb} rows of {P} do not fit in shared memory")
     kw, c = kw.contiguous(), c.contiguous()
     out = torch.zeros(P, dtype=torch.int32, device=dev)
-    rc = lib.qvz_microbench_mix(MIX_MODES[mode], reps, kw.data_ptr(),
-                                c.data_ptr(), rows, P, rpb, out.data_ptr(),
-                                _stream(dev))
-    _build.check(rc, f"{name} kernel")
-    _build.LAUNCHES[name] += 1
+    _build.launch(name, f"{name} kernel", dev, lib.qvz_microbench_mix,
+                  MIX_MODES[mode], reps, kw.data_ptr(), c.data_ptr(), rows, P,
+                  rpb, out.data_ptr())
     return out.view(kw.shape[1:])
 
 

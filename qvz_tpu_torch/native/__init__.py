@@ -85,6 +85,10 @@ def load() -> ctypes.CDLL:
 
     lib.qvz_well_draws7.argtypes = [u32p, c.c_uint64, u8p]
     lib.qvz_well_draws7.restype = None
+    lib.qvz_encode_lines.argtypes = [
+        u8p, u32p, u8p, c.c_uint64, c.c_uint32, u32p, c.c_uint32, u8p,
+        c.c_int64]
+    lib.qvz_encode_lines.restype = c.c_int64
     lib.qvz_well_jump.argtypes = [u32p, c.c_uint32, c.c_uint64, u32p]
     lib.qvz_well_jump.restype = None
 

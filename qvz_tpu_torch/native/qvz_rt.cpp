@@ -1447,6 +1447,39 @@ const uint16_t* qvz_tables_qsv(void* h) { return static_cast<Tables*>(h)->qsv.da
 
 }  // extern "C"
 
+extern "C" {
+
+// Line-structured encode: cluster symbol then each column's symbol, the
+// exact stream order of qv_compressor.c:76-137. model_ids/syms hold only
+// the per-column entries; cluster ids are coded with model 0.
+int64_t qvz_encode_lines(const uint8_t* cluster_ids, const uint32_t* model_ids,
+                         const uint8_t* syms, uint64_t n_lines,
+                         uint32_t columns, const uint32_t* model_cards,
+                         uint32_t n_models, uint8_t* out, int64_t cap) {
+  ModelBank bank;
+  bank.init(model_cards, n_models);
+  BitWriter bw(out, cap);
+  Encoder enc(&bw);
+  for (uint64_t i = 0; i < n_lines; ++i) {
+    uint32_t c = cluster_ids ? cluster_ids[i] : 0;
+    enc.step(bank, 0, c);
+    bank.update(0, c);
+    const uint32_t* mrow = model_ids + i * columns;
+    const uint8_t* srow = syms + i * columns;
+    for (uint32_t col = 0; col < columns; ++col) {
+      uint32_t m = mrow[col];
+      uint32_t x = srow[col];
+      enc.step(bank, m, x);
+      bank.update(m, x);
+    }
+  }
+  int64_t n = enc.finish();
+  if (bw.overflow) return -n;
+  return n;
+}
+
+}  // extern "C"
+
 // --- WELL GF(2) jump-ahead ------------------------------------------------
 
 // One next_word() call is linear over GF(2) on the 1024-bit state when the

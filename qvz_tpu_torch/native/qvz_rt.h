@@ -61,6 +61,11 @@ void qvz_quantize_colmajor(void* tables, const uint8_t* data_t,
                            uint32_t* model_t, uint8_t* qs_t);
 
 // --- coding ---------------------------------------------------------------
+int64_t qvz_encode_lines(const uint8_t* cluster_ids,
+                         const uint32_t* model_ids, const uint8_t* syms,
+                         uint64_t n_lines, uint32_t columns,
+                         const uint32_t* model_cards, uint32_t n_models,
+                         uint8_t* out, int64_t cap);
 int64_t qvz_encode_fused(void* tables, const uint8_t* data, uint64_t n_lines,
                          const uint8_t* cluster_ids,
                          const uint32_t* well_state, const double* dist,

@@ -234,6 +234,28 @@ def stats_host(data: np.ndarray, clusters: np.ndarray | None,
     return counts0.astype(np.int64), cond.astype(np.int64)
 
 
+def encode_lines(tables: Tables, cluster_ids, model_ids: np.ndarray,
+                 syms: np.ndarray) -> bytes:
+    """Arithmetic-code the full stream in reference order."""
+    lib = native.load()
+    n, cols = model_ids.shape
+    model_ids = np.ascontiguousarray(model_ids, dtype=np.uint32)
+    syms = np.ascontiguousarray(syms, dtype=np.uint8)
+    cl = (np.ascontiguousarray(cluster_ids, dtype=np.uint8)
+          if cluster_ids is not None else None)
+    cards = np.ascontiguousarray(tables.model_card, dtype=np.uint32)
+    cap = n * cols + (n * cols) // 2 + 4096
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        r = lib.qvz_encode_lines(
+            _ptr(cl, _u8p) if cl is not None else None,
+            _ptr(model_ids, _u32p), _ptr(syms, _u8p), n, cols,
+            _ptr(cards, _u32p), tables.n_models, _ptr(out, _u8p), cap)
+        if r >= 0:
+            return out[:r].tobytes()
+        cap = -r + 4096
+
+
 def encode_fused(tables: Tables, data: np.ndarray, cluster_ids,
                  well_state_words, dist: np.ndarray | None = None,
                  want_recon: bool = False, verbose: bool = False):
@@ -407,6 +429,7 @@ def decode_colmajor(tables: Tables, payload: bytes, n_lines: int,
                     well_state_words, out: np.ndarray | None = None,
                     init_bank: np.ndarray | None = None,
                     want_bank: bool = False,
+                    cluster_out: bool = False,
                     draws_t: np.ndarray | None = None):
     """Decode a column-major shard payload to Phred+33 text lines.
 
@@ -428,18 +451,24 @@ def decode_colmajor(tables: Tables, payload: bytes, n_lines: int,
           if init_bank is not None else None)
     ob = (np.empty(tables.bank_words, dtype=np.uint32)
           if want_bank else None)
+    cl = np.empty(n_lines, dtype=np.uint8) if cluster_out else None
     dt = (np.ascontiguousarray(draws_t, dtype=np.uint8)
           if draws_t is not None else None)
     r = lib.qvz_decode_colmajor(tables._h, _ptr(pay, _u8p), len(pay),
                                 n_lines, _ptr(st, _u32p), _ptr(out, _u8p),
                                 _ptr(ib, _u32p) if ib is not None else None,
                                 _ptr(ob, _u32p) if ob is not None else None,
-                                None,
+                                _ptr(cl, _u8p) if cl is not None else None,
                                 _ptr(dt, _u8p) if dt is not None else None)
     if r != 0:
         raise ValueError(f"decode failed with status {r}")
     out = out.reshape(n_lines, cols + 1)
-    return (out, ob) if want_bank else out
+    res = [out]
+    if want_bank:
+        res.append(ob)
+    if cluster_out:
+        res.append(cl)
+    return tuple(res) if len(res) > 1 else out
 
 
 def decode_cluster_prologue(tables: Tables, payload, n_lines: int,
@@ -466,7 +495,7 @@ def decode_cluster_prologue(tables: Tables, payload, n_lines: int,
 
 def decode_lines(tables: Tables, payload: bytes, n_lines: int,
                  well_state_words, out: np.ndarray | None = None,
-                 verbose: bool = False):
+                 cluster_out: bool = False, verbose: bool = False):
     """Decode the payload to Phred+33 text bytes with newlines.
 
     `out` may be a preallocated C-contiguous uint8 buffer of
@@ -484,9 +513,12 @@ def decode_lines(tables: Tables, payload: bytes, n_lines: int,
     else:
         assert out.flags["C_CONTIGUOUS"] and out.dtype == np.uint8
         assert out.size == n_lines * (cols + 1)
+    cl = np.empty(n_lines, dtype=np.uint8) if cluster_out else None
     r = lib.qvz_decode_lines(tables._h, _ptr(pay, _u8p), len(pay),
                              n_lines, _ptr(st, _u32p), _ptr(out, _u8p),
-                             None, int(verbose))
+                             _ptr(cl, _u8p) if cl is not None else None,
+                             int(verbose))
     if r != 0:
         raise ValueError(f"decode failed with status {r}")
-    return out.reshape(n_lines, cols + 1)
+    out = out.reshape(n_lines, cols + 1)
+    return (out, cl) if cluster_out else out

@@ -547,10 +547,6 @@ def code_lanes(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
                     start_raw(W, dev, max_words))
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _uses_scratch(shape: dict, W: int, dev) -> torch.Tensor | None:
     """Layout 2's device-memory uses: (s_pad + m_pad) u16 for each lane
     of each block (K2a's and K5's); None in the other layouts."""
@@ -588,17 +584,16 @@ def triples(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor, lane_counts,
     trip = torch.empty(((c1 - c0) * L, W), dtype=torch.int64, device=dev)
     resc = torch.zeros(W, dtype=torch.int64, device=dev)
     scratch = _uses_scratch(shape, W, dev)
-    rc = lib.qvz_coder_triples(
-        mid.data_ptr(), qs.data_ptr(), mid.shape[1], offs.data_ptr(), W, c0,
+    _build.launch(
+        "coder_triples", "lane coder triples kernel", dev,
+        lib.qvz_coder_triples, mid.data_ptr(), qs.data_ptr(), mid.shape[1], offs.data_ptr(), W, c0,
         c1 - c0, L, plan_t["mloc"].data_ptr(), plan_t["mtab"].data_ptr(),
         plan_t["col_model_off"].data_ptr(), plan_t["init_counts"].data_ptr(),
         plan_t["init_prefix"].data_ptr(), plan_t["col_slots"].data_ptr(), S,
         trip.data_ptr(), resc.data_ptr(), shape["layout"],
         scratch.data_ptr() if scratch is not None else None, shape["lpw"],
         shape["lpb"], shape["lt"], shape["s_pad"], shape["m_pad"],
-        shape["smem"], _stream(dev))
-    _build.check(rc, "lane coder triples kernel")
-    _build.LAUNCHES["coder_triples"] += 1
+        shape["smem"])
     return trip, resc != 0
 
 
@@ -634,13 +629,11 @@ def chain(trip: torch.Tensor, ncols: int, lane_counts, raw,
     lib = _build.load()
     trip = trip.contiguous()
     offs = _lane_offsets(lane_counts, 0, dev)
-    rc = lib.qvz_coder_chain(trip.data_ptr(), ncols, trip.shape[0] // ncols,
-                             offs.data_ptr(), W, words.data_ptr(),
-                             words.shape[1], n_words.data_ptr(),
-                             carry.data_ptr(), lanes_per_warp,
-                             _stream(dev))
-    _build.check(rc, "lane coder chain kernel")
-    _build.LAUNCHES["coder_chain"] += 1
+    _build.launch("coder_chain", "lane coder chain kernel", dev,
+                  lib.qvz_coder_chain, trip.data_ptr(), ncols,
+                  trip.shape[0] // ncols, offs.data_ptr(), W,
+                  words.data_ptr(), words.shape[1], n_words.data_ptr(),
+                  carry.data_ptr(), lanes_per_warp)
     return raw
 
 
@@ -691,22 +684,29 @@ def payloads_from_raw(words_h, n_words_h, carry_h):
     return payloads, flags
 
 
+def finish_lanes(raw):
+    """The host's end of ``code_lanes``: wait for the lanes of the raw
+    output `raw`, copy them to the host and assemble their payloads.
+    Returns (payloads, flags) as ``payloads_from_raw`` and the seconds of
+    the device-to-host copy (fenced)."""
+    if raw[0].device.type == "cuda":
+        torch.cuda.synchronize(raw[0].device)
+    t0 = time.perf_counter()
+    fetched = fetch_lanes(*raw)
+    d2h = time.perf_counter() - t0
+    return (*payloads_from_raw(*fetched), d2h)
+
+
 def encode_lanes_raw(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
                      lane_counts, base: int,
-                     cluster_triples: np.ndarray | None = None,
-                     stats: dict | None = None):
+                     cluster_triples: np.ndarray | None = None):
     """(payloads, flags) for the lanes of the (cols, N) quantize outputs:
     the contract of ``qvz_tpu.ops.coder_device.encode_lanes_raw``. Lane w
     covers lines base + sum(lane_counts[:w]) onwards; cluster_triples
     (W, max lane count, 3) uint32 are its cluster-id steps, None with one
     cluster. payloads[w] is None where flags[w] is set and the caller
-    must re-code that lane on the host. stats, if given, gets the seconds
-    of the device-to-host copy under "d2h" (fenced)."""
-    raw = code_lanes(plan_t, mid, qs, lane_counts, base, cluster_triples)
-    if mid.device.type == "cuda":
-        torch.cuda.synchronize(mid.device)
-    t0 = time.perf_counter()
-    fetched = fetch_lanes(*raw)
-    if stats is not None:
-        stats["d2h"] = time.perf_counter() - t0
-    return payloads_from_raw(*fetched)
+    must re-code that lane on the host. ``code_lanes`` then
+    ``finish_lanes``."""
+    payloads, flags, _ = finish_lanes(
+        code_lanes(plan_t, mid, qs, lane_counts, base, cluster_triples))
+    return payloads, flags

@@ -413,7 +413,8 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
                         device=dev)
     state_out = torch.empty((W, 5), dtype=torch.int64, device=dev)
     hi = base + int(np.sum(lane_counts))
-    rc = lib.qvz_decode_lanes(
+    _build.launch(
+        "decoder", "lane decoder kernel", dev, lib.qvz_decode_lanes,
         flat.data_ptr(), pays.off.data_ptr(), pays.len.data_ptr(),
         draws_t.data_ptr(), n,
         cl.contiguous().data_ptr() if cl is not None else None,
@@ -426,10 +427,7 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
         out.data_ptr(), out.shape[1], sym_add, state_out.data_ptr(),
         shape["layout"], scratch.data_ptr() if scratch is not None else None,
         shape["lpw"], shape["lpb"], shape["lt"], shape["s_pad"],
-        shape["m_pad"], shape["smem"], base, hi,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "lane decoder kernel")
-    _build.LAUNCHES["decoder"] += 1
+        shape["m_pad"], shape["smem"], base, hi)
     return state_out
 
 

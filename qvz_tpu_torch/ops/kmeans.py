@@ -160,13 +160,11 @@ def launch(data_t: torch.Tensor, means4: torch.Tensor, k: int, shape: dict):
     cols, n = data_t.shape
     assign = torch.empty(n, dtype=torch.int32, device=dev)
     out = torch.zeros((k, cols + 1), dtype=torch.long, device=dev)
-    rc = lib.qvz_kmeans_step(
+    _build.launch(
+        "kmeans", "k-means kernel", dev, lib.qvz_kmeans_step,
         data_t.data_ptr(), n, cols, means4.data_ptr(), k, shape["k_pad"],
         shape["kt"], shape["mode"], int(shape["means_shared"]), shape["T"],
-        shape["smem"], shape["grid"], assign.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "k-means kernel")
-    _build.LAUNCHES["kmeans"] += 1
+        shape["smem"], shape["grid"], assign.data_ptr(), out.data_ptr())
     return assign, out
 
 
@@ -236,20 +234,38 @@ def kmeans_cluster(data: np.ndarray, n_clusters: int, threshold: float,
     if n_clusters == 1:
         return (torch.zeros(n, dtype=torch.uint8, device=data_t.device),
                 data[:1].copy(), 0)
+    assigns, means, iters = lloyd(data, n_clusters, threshold, [data_t],
+                                  rand, verbose)
+    return assigns[0], means, iters
+
+
+def lloyd(data: np.ndarray, n_clusters: int, threshold: float,
+          blocks: list, rand=None, verbose: bool = False):
+    """The k-means of ``kmeans_cluster`` over the reads `data` held on
+    the devices as `blocks`, the (cols, n_b) uint8 reads of contiguous
+    rows in order, each on its own device (several may share one): each
+    Lloyd step runs K4 on every block, with one upload of the packed means
+    and one copy back of the packed sums and counts a block, and sums
+    the exact integer accumulators on the host. Returns (assign per block,
+    (n_b,) uint8 tensors on its device; means (K, cols) uint8 numpy;
+    iters)."""
+    cols = data.shape[1]
     means = spec_kmeans.seed_centroids(data, n_clusters, rand,
                                        verbose=verbose).astype(np.int64)
-    shape = (card_step_shape(data_t, n_clusters)
-             if data_t.device.type == "cuda" else None)
-    assign = None
+    shapes = [card_step_shape(b, n_clusters) if b.device.type == "cuda"
+              else None for b in blocks]
+    steps = []
     iters = 0
     while iters < MAX_KMEANS_ITERATIONS:
-        assign, packed = _step_packed(data_t, torch.from_numpy(means), shape)
+        steps = [_step_packed(b, torch.from_numpy(means), shape)
+                 for b, shape in zip(blocks, shapes)]
         iters += 1
-        packed = _to_host(packed)
+        packed = sum(_to_host(p) for _, p in steps)
         means, stop = spec_kmeans.update_means(
             means, packed[:, :cols], packed[:, cols], threshold, verbose)
         if stop:
             break
     if verbose:
         spec_kmeans.verbose_total(iters)
-    return assign.to(torch.uint8), means.astype(np.uint8), iters
+    return ([a.to(torch.uint8) for a, _ in steps], means.astype(np.uint8),
+            iters)

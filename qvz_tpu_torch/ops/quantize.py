@@ -141,14 +141,13 @@ def quantize_t_device(tabs: dict, data_t: torch.Tensor,
     qs = torch.empty_like(mid)
     qv = torch.empty_like(mid)
     cl = cluster_ids.contiguous() if cluster_ids is not None else None
-    rc = lib.qvz_quantize(
+    _build.launch(
+        "quantize", "quantize kernel", data_t.device, lib.qvz_quantize,
         data_t.data_ptr(), draws_t.data_ptr(),
         cl.data_ptr() if cl is not None else None, n, cols,
         tabs["ctx2"].data_ptr(), tabs["pair_bounds"].data_ptr(),
         tabs["qsv"].data_ptr(), mid.data_ptr(), qs.data_ptr(),
-        qv.data_ptr(), torch.cuda.current_stream(data_t.device).cuda_stream)
-    _build.check(rc, "quantize kernel")
-    _build.LAUNCHES["quantize"] += 1
+        qv.data_ptr())
     return mid, qs, qv
 
 

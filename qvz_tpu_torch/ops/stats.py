@@ -188,14 +188,12 @@ def conditional_counts_t(data_t: torch.Tensor,
         return counts0, cond
     shape = card_hist_shape(data_t, n_clusters)
     cl = clusters.contiguous() if clusters is not None else None
-    rc = lib.qvz_hist(data_t.data_ptr(),
-                      cl.data_ptr() if cl is not None else None, n, cols,
-                      n_clusters, shape["mode"], shape["band"],
-                      shape["slice"], shape["nslices"], shape["threads"],
-                      shape["smem"], counts0.data_ptr(), cond.data_ptr(),
-                      torch.cuda.current_stream(data_t.device).cuda_stream)
-    _build.check(rc, "histogram kernel")
-    _build.LAUNCHES["hist"] += 1
+    _build.launch("hist", "histogram kernel", data_t.device, lib.qvz_hist,
+                  data_t.data_ptr(),
+                  cl.data_ptr() if cl is not None else None, n, cols,
+                  n_clusters, shape["mode"], shape["band"], shape["slice"],
+                  shape["nslices"], shape["threads"], shape["smem"],
+                  counts0.data_ptr(), cond.data_ptr())
     return counts0, cond
 
 

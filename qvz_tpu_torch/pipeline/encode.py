@@ -21,6 +21,11 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
                flagged lanes, distortion and container assembly
 
 Device phases end in a synchronise, so each time covers its device work.
+Every encode runs its device phases on blocks of reads
+(``parallel/sharded.py``): one block on `device`, or with a mesh one
+contiguous block a mesh entry, cut at shard boundaries, the k-means and
+statistics merged as exact integers and each block's lanes coded on its
+own device. The container does not depend on the split.
 The container is byte-identical to ``qvz_tpu``'s, and to the port's host
 engine (``pipeline/host.py``), for the same shard count, priming and WELL
 seed. With shards == 1 the statistics and k-means still run on the
@@ -37,15 +42,16 @@ import numpy as np
 import torch
 
 from qvz_tpu_torch.constants import MODE_RATIO
-from qvz_tpu_torch.device import resolve, synchronize
+from qvz_tpu_torch.device import resolve
 from qvz_tpu_torch.format import container_v2
 from qvz_tpu_torch.native import runtime as rt
-from qvz_tpu_torch.ops import coder_device, kmeans, quantize
-from qvz_tpu_torch.ops import stats as dev_stats
+from qvz_tpu_torch.ops import coder_device, quantize
 from qvz_tpu_torch.ops.well import WellState
+from qvz_tpu_torch.parallel import sharded
 from qvz_tpu_torch.pipeline import host
 from qvz_tpu_torch.pipeline.host import (EncodeOutput, EncodeStats,
-                                         _shard_draws, shard_plan)
+                                         _shard_draws, shard_counts,
+                                         shard_plan)
 
 
 def device_lane_count(n: int) -> int:
@@ -60,6 +66,7 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
            cluster_threshold: float = 4.0,
            well_state: WellState | None = None,
            shards: int = 0,
+           mesh=None,
            reuse_blocks: bytes | None = None,
            want_recon: bool = True,
            prime: bool = True,
@@ -74,9 +81,14 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     shards after the warmup shard start from its model bank.
     reuse_blocks: the codebook blocks of an earlier container (a
     checkpoint); K4 still clusters, but the statistics and the design
-    are skipped (phase stats 0.0) and the tables come from the blocks."""
-    dev = resolve(device)
+    are skipped (phase stats 0.0) and the tables come from the blocks.
+    mesh: a ``parallel.mesh.DeviceMesh`` in place of `device`; the reads
+    split into one contiguous block a mesh entry (at shard boundaries,
+    block 0 with the warmup shard; evenly for the v1 container) and
+    every device phase runs on each block on its device; the container
+    is byte-identical to the one-device encode's."""
     n, columns = data.shape
+    devices = mesh.devices if mesh is not None else (resolve(device),)
     if shards == 0:
         shards = device_lane_count(n)
     shards = max(1, min(shards, n))
@@ -84,21 +96,25 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
         well_state = WellState.debug()
     st = EncodeStats(lines=n, columns=columns)
     ph, dv = st.phase_seconds, st.device_seconds
+    if shards == 1:
+        bounds = sharded.even_bounds(n, len(devices))
+    else:
+        counts, prime_on = shard_counts(n, columns, shards, prime)
+        bounds = sharded.lane_bounds(np.cumsum([0] + counts),
+                                     int(prime_on), len(devices))
 
     t0 = time.perf_counter()
-    data_dev = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
-    data_t = data_dev.t().contiguous()
-    del data_dev
-    synchronize(dev)
+    blocks = sharded.upload(devices, data, bounds)
+    sharded.synchronize_all(blocks)
     t1 = time.perf_counter()
     ph["h2d"] = dv["h2d"] = t1 - t0
 
-    cl_dev = clusters = None
+    clusters = None
     if n_clusters > 1:
-        cl_dev, _, _ = kmeans.kmeans_cluster(
-            data, n_clusters, cluster_threshold, verbose=verbose,
-            data_t=data_t)
-        clusters = cl_dev.cpu().numpy()
+        sharded.cluster(blocks, data, n_clusters, cluster_threshold,
+                        verbose=verbose)
+        clusters = np.concatenate([b.clusters.cpu().numpy()
+                                   for b in blocks])
         dv["cluster"] = time.perf_counter() - t1
     t2 = time.perf_counter()
     ph["cluster"] = t2 - t1
@@ -107,19 +123,18 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
 
     if reuse_blocks is not None:
         tables = rt.tables_from_blocks(reuse_blocks, n_clusters, columns)
-        blocks = reuse_blocks[:tables.consumed]
+        books = reuse_blocks[:tables.consumed]
         t4 = time.perf_counter()
         ph["stats"] = 0.0
         ph["design"] = t4 - t2
     else:
-        counts0, cond = dev_stats.conditional_counts_t(data_t, cl_dev,
-                                                       n_clusters)
+        counts0, cond = sharded.conditional_counts(blocks, n_clusters)
         counts0, cond = counts0.cpu().numpy(), cond.cpu().numpy()
         t3 = time.perf_counter()
         ph["stats"] = dv["stats"] = t3 - t2
 
         design = rt.Design(counts0, cond, mode, ratio, dist_matrix)
-        blocks = design.serialized()
+        books = design.serialized()
         tables = design.tables()
         t4 = time.perf_counter()
         ph["design"] = t4 - t3
@@ -129,7 +144,7 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
 
     if shards == 1:
         compressed, payload_bytes, recon, dist_sum = host.encode_v1(
-            tables, blocks, data, clusters, n_clusters, well_state,
+            tables, books, data, clusters, n_clusters, well_state,
             dist_matrix, want_recon, verbose)
         ph["code"] = time.perf_counter() - t4
         return _output(compressed, payload_bytes, recon, dist_sum,
@@ -141,27 +156,27 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     t5 = time.perf_counter()
     ph["draws"] = t5 - t4
 
-    draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
-    synchronize(dev)
+    draws_t = [torch.from_numpy(draws[b.lo:b.hi]).to(b.device).t()
+               .contiguous() for b in blocks]
+    sharded.synchronize_all(blocks)
     t6 = time.perf_counter()
     ph["h2d"] += t6 - t5
     dv["h2d"] += t6 - t5
 
-    mid, qs, qv = quantize.quantize_t_device(
-        quantize.tables_to_torch(tables, dev), data_t, draws_t, cl_dev)
+    quant = sharded.quantize_blocks(blocks, tables, draws_t)
     del draws_t
-    synchronize(dev)
+    sharded.synchronize_all(blocks)
     t7 = time.perf_counter()
     ph["quantize"] = dv["quantize"] = t7 - t6
 
     payloads, dist_sum, recon = _code_shards(
-        tables, data, data_t, clusters, mid, qs, qv, states, counts, offs,
+        tables, data, blocks, quant, clusters, states, counts, offs,
         prime_on, dist_matrix, want_recon, st)
 
     shard_states = [np.asarray(states[s], dtype="<u4").tobytes()
                     for s in range(len(counts))]
     compressed = container_v2.build(
-        blocks, n_clusters, columns, n, counts, shard_states, payloads,
+        books, n_clusters, columns, n, counts, shard_states, payloads,
         priming=1 if prime_on else 0)
     ph["code"] = time.perf_counter() - t7
     return _output(compressed, sum(len(p) for p in payloads), recon,
@@ -179,12 +194,13 @@ def _output(compressed, payload_bytes, recon, dist_sum, clusters,
                         else clusters, st)
 
 
-def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
-                 counts, offs, prime_on, dist_matrix, want_recon, st):
+def _code_shards(tables, data, blocks, quant, clusters, states, counts,
+                 offs, prime_on, dist_matrix, want_recon, st):
     """Entropy-code the shards: the warmup shard on the host in a thread,
-    every other shard as one device lane (the counterpart of qvz_tpu's
-    _device_coder_encode). clusters: (N,) uint8 ids, or None with one
-    cluster. Returns (payloads, distortion sum, recon)."""
+    every other shard as one device lane of the block that holds it (the
+    counterpart of qvz_tpu's _device_coder_encode). quant: each block's
+    (mid, qs, qv); clusters: (N,) uint8 ids, or None with one cluster.
+    Returns (payloads, distortion sum, recon)."""
     ph, dv = st.phase_seconds, st.device_seconds
     columns = data.shape[1]
     t0 = time.perf_counter()
@@ -209,7 +225,6 @@ def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
         warmup_thread = threading.Thread(target=_code_warmup)
         warmup_thread.start()
     plan = coder_device.LanePlan(tables, bank)
-    plan_t = coder_device.plan_to_torch(plan, mid.device)
 
     lane_counts = counts[first:]
     ctrip = None
@@ -223,33 +238,60 @@ def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
             ctrip[w, : hi - lo] = rt.replay_model(
                 plan.cluster_init_counts, plan.cluster_init_total,
                 clusters[lo:hi])
-    tim: dict = {}
+    # each block's lanes w0 .. w1 - 1, from its local line base
+    lanes = []
+    for b in blocks:
+        w0 = max(int(np.searchsorted(offs, b.lo)), first) - first
+        w1 = int(np.searchsorted(offs, b.hi)) - first
+        lanes.append((w0, w1, int(offs[first + w0]) - b.lo))
+    plans: dict = {}
+    lane_pays: list = [None] * len(lane_counts)
+    flags = np.zeros(len(lane_counts), dtype=bool)
+    d2h = 0.0
     try:
-        lane_pays, flags = coder_device.encode_lanes_raw(
-            plan_t, mid, qs, lane_counts, int(offs[first]), ctrip,
-            stats=tim)
+        # every block's lanes launched before the first is fetched
+        raws = []
+        for b, (mid, qs, _), (w0, w1, base) in zip(blocks, quant, lanes):
+            if w1 <= w0:
+                raws.append(None)
+                continue
+            if b.device not in plans:
+                plans[b.device] = coder_device.plan_to_torch(plan, b.device)
+            lc = lane_counts[w0:w1]
+            raws.append(coder_device.code_lanes(
+                plans[b.device], mid, qs, lc, base,
+                None if ctrip is None else ctrip[w0:w1, :max(lc)]))
+        for raw, (w0, w1, _) in zip(raws, lanes):
+            if raw is not None:
+                lane_pays[w0:w1], flags[w0:w1], secs = \
+                    coder_device.finish_lanes(raw)
+                d2h += secs
     finally:
         if warmup_thread is not None:
             warmup_thread.join()
     t1 = time.perf_counter()
     ph["device_code"] = dv["device_code"] = t1 - t0
-    ph["d2h"] = dv["d2h"] = tim["d2h"]
+    ph["d2h"] = dv["d2h"] = d2h
     st.coder_fallback_lanes = int(flags.sum())
 
-    for w in np.flatnonzero(flags):
-        lo, hi = int(offs[first + w]), int(offs[first + w + 1])
-        lane_pays[w] = rt.encode_precomputed_colmajor(
-            tables,
-            np.ascontiguousarray(mid[:, lo:hi].cpu().numpy(),
-                                 dtype=np.uint32),
-            np.ascontiguousarray(qs[:, lo:hi].cpu().numpy(),
-                                 dtype=np.uint8),
-            clusters[lo:hi] if clusters is not None else None, hi - lo,
-            init_bank=bank)
+    for b, (mid, qs, _), (w0, w1, _) in zip(blocks, quant, lanes):
+        for w in np.flatnonzero(flags[w0:w1]) + w0:
+            lo, hi = int(offs[first + w]), int(offs[first + w + 1])
+            lane_pays[w] = rt.encode_precomputed_colmajor(
+                tables,
+                np.ascontiguousarray(
+                    mid[:, lo - b.lo:hi - b.lo].cpu().numpy(),
+                    dtype=np.uint32),
+                np.ascontiguousarray(
+                    qs[:, lo - b.lo:hi - b.lo].cpu().numpy(),
+                    dtype=np.uint8),
+                clusters[lo:hi] if clusters is not None else None,
+                hi - lo, init_bank=bank)
 
     t2 = time.perf_counter()
     if want_recon:
-        recon = qv.to(torch.uint8).cpu().numpy().T.copy()
+        recon = np.concatenate([qv.to(torch.uint8).cpu().numpy().T
+                                for _, _, qv in quant])
         ph["d2h"] += time.perf_counter() - t2
         dv["d2h"] = ph["d2h"]
         dist_sum = float(
@@ -257,7 +299,7 @@ def _code_shards(tables, data, data_t, clusters, mid, qs, qv, states,
         ) / columns
     else:
         recon = None
-        dist_sum = quantize.distortion_device(data_t, qv,
-                                              dist_matrix) / columns
+        dist_sum = sum(quantize.distortion_device(b.data_t, qv, dist_matrix)
+                       for b, (_, _, qv) in zip(blocks, quant)) / columns
     payloads = ([warmup_out[0]] if prime_on else []) + lane_pays
     return payloads, dist_sum, recon

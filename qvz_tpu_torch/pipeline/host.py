@@ -105,6 +105,17 @@ def _state_words(well_state: WellState) -> np.ndarray:
     return np.asarray(well_state.state, dtype=np.uint32)[order]
 
 
+def shard_counts(n: int, columns: int, shards: int, prime: bool):
+    """Lines per shard of the QVZ2 plan, and whether shard 0 is a priming
+    warmup shard (``shard_plan`` without the WELL states)."""
+    # Adaptive warmup: an eighth of the file, capped.
+    warmup = min(PRIME_WARMUP_LINES, max(8192, n // 12)) if prime else 0
+    prime_on = warmup > 0 and shards > 1 and n > 2 * warmup
+    counts = _shard_plan(n, columns, shards,
+                         warmup=warmup if prime_on else 0)
+    return counts, prime_on and len(counts) > 1
+
+
 def shard_plan(n: int, columns: int, shards: int, prime: bool,
                well_state: WellState):
     """The QVZ2 plan for shards >= 2: lines per shard, the per-shard WELL
@@ -112,12 +123,7 @@ def shard_plan(n: int, columns: int, shards: int, prime: bool,
     priming warmup shard. Shard s starts counts[0..s)*columns draws into
     the single logical WELL stream."""
     state_words = _state_words(well_state)
-    # Adaptive warmup: an eighth of the file, capped.
-    warmup = min(PRIME_WARMUP_LINES, max(8192, n // 12)) if prime else 0
-    prime_on = warmup > 0 and shards > 1 and n > 2 * warmup
-    counts = _shard_plan(n, columns, shards,
-                         warmup=warmup if prime_on else 0)
-    prime_on = prime_on and len(counts) > 1
+    counts, prime_on = shard_counts(n, columns, shards, prime)
     if prime_on:
         # non-uniform plan: jump over the warmup shard, then equal
         # chunks from there

@@ -13,9 +13,9 @@ the input of chip_smoke.py (1,000,000 x 100, seed 42, -f 0.5, MSE,
 primed and unprimed, and decode(device="cuda") of each container, each
 timed as the median of 3 after one warm-up, with the phase split
 (seconds) of the last of the 3. Runs go parent, change, change, parent,
-R times. Prints one JSON line a run, then the median MB/s and phase
-seconds of each side, each configuration, and the change's ratio to the
-parent. The end-to-end numbers of one checkout alone come from
+R times. Prints one JSON line a run, then the median and quartiles of
+the MB/s and phase seconds of each side, each configuration, and the
+change's ratio to the parent's median. The end-to-end numbers of one checkout alone come from
 chip_smoke.py.
 """
 
@@ -120,10 +120,14 @@ def main() -> int:
                 continue
             med = {side: statistics.median(r[cfg][metric] for r in rs)
                    for side, rs in runs.items()}
+            quart = {side: [round(q, 4) for q in statistics.quantiles(
+                [r[cfg][metric] for r in rs], n=4)[::2]] if len(rs) > 1
+                else [] for side, rs in runs.items()}
             ratio = (f"{med['change'] / med['parent']:.3f}"
                      if med["parent"] else "-")
             print(f"{cfg} {metric}: parent {med['parent']:.4f}, change "
-                  f"{med['change']:.4f} (ratio {ratio}; runs parent "
+                  f"{med['change']:.4f} (ratio {ratio}; quartiles parent "
+                  f"{quart['parent']}, change {quart['change']}; runs parent "
                   f"{[round(r[cfg][metric], 4) for r in runs['parent']]}, "
                   f"change "
                   f"{[round(r[cfg][metric], 4) for r in runs['change']]})",

@@ -57,6 +57,15 @@ with tempfile.TemporaryDirectory() as td:
     mh, st = encode_multihost(src, n_hosts=2, shards=4,
                               well_state=WellState.debug(), device="cpu")
     assert mh == out.compressed and st["hosts"] == 2
+    from qvz_tpu_torch.parallel.mesh import make_mesh
+    meshy = encode(data, make_matrix(1), well_state=WellState.debug(),
+                   shards=4, mesh=make_mesh(devices=["cpu"] * 2))
+    assert meshy.compressed == out.compressed
+    from qvz_tpu_torch.tools import transcode
+    t2 = td + "/t2"
+    assert transcode.main(["transcode", q, t2, "--to", "v2", "--shards",
+                           "4"]) == 0
+    assert open(t2, "rb").read() == out.compressed
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "qvz_tpu"
              or m.startswith("qvz_tpu."))
@@ -71,7 +80,7 @@ def _port_files():
             + [root / "chip_smoke.py"]
             + [root / "scripts" / f for f in (
                 "profile_torch_encode.py", "time_k1_k4.py",
-                "compare_torch_e2e.py")])
+                "compare_torch_e2e.py", "mesh_check_torch.py")])
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -94,9 +103,10 @@ def test_no_import_of_qvz_tpu(path):
 
 def test_port_never_imports_jax():
     """Every port module, the device and host encode and decode, a v1
-    decode, the CLI (in process and as python -m qvz_tpu_torch -x) and a
-    2-host encode (its workers started from the port's launch strings)
-    run, and neither qvz_tpu nor jax is then in sys.modules."""
+    decode, the CLI (in process and as python -m qvz_tpu_torch -x), a
+    2-host encode (its workers started from the port's launch strings),
+    an encode over a mesh of two CPU blocks and a transcode run, and
+    neither qvz_tpu nor jax is then in sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", _STANDALONE], cwd=ROOT,
@@ -198,3 +208,81 @@ def test_host_runtime_build_failure_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.load()
     assert not list((tmp_path / "native").glob("*.so"))
+
+
+def test_launch_makes_the_tensors_card_current(monkeypatch):
+    """_build.launch calls its library entry with the card of the device
+    it is given made current and that card's stream last, and counts the
+    launch; a failed launch raises and is not counted."""
+    current = []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            current.append(self.dev)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    class Stream:
+        def __init__(self, dev):
+            self.cuda_stream = 1000 + dev.index
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    calls = []
+
+    def entry(*args):
+        calls.append((current[-1], args))
+        return 0
+
+    card = torch.device("cuda", 3)
+    before = _build.LAUNCHES["hist"]
+    _build.launch("hist", "histogram kernel", card, entry, 7, 8)
+    assert calls == [(card, (7, 8, 1003))] and not current
+    assert _build.LAUNCHES["hist"] == before + 1
+    with pytest.raises(RuntimeError, match="histogram kernel launch failed"):
+        _build.launch("hist", "histogram kernel", card, lambda *a: 700)
+    assert _build.LAUNCHES["hist"] == before + 1 and not current
+
+
+def _wrapper_files():
+    root = pathlib.Path(ROOT) / "qvz_tpu_torch"
+    return sorted((root / "ops").glob("*.py")) + [root / "microbench.py"]
+
+
+@pytest.mark.parametrize("path", _wrapper_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_wrappers_launch_on_their_tensors_card(path):
+    """Every kernel wrapper launches through _build.launch with the device
+    of its tensors (`t.device`, or a name bound to one), never on whatever
+    card is current: no library entry but the shared-memory queries is
+    called directly."""
+    queries = {"qvz_coder_smem_limits", "qvz_decoder_smem_limit"}
+    for fn in ast.walk(ast.parse(path.read_text(), str(path))):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        bound = {t.id: node.value for node in ast.walk(fn)
+                 if isinstance(node, ast.Assign)
+                 for t in node.targets if isinstance(t, ast.Name)}
+        launched = {}
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Call) \
+                    or not isinstance(node.func, ast.Attribute):
+                continue
+            if node.func.attr.startswith("qvz_"):
+                assert node.func.attr in queries, \
+                    f"{path.name}:{node.lineno} calls {node.func.attr} directly"
+            if node.func.attr == "launch" \
+                    and getattr(node.func.value, "id", "") == "_build":
+                dev = node.args[2]
+                if isinstance(dev, ast.Name):
+                    dev = bound.get(dev.id)
+                assert isinstance(dev, ast.Attribute) \
+                    and dev.attr == "device", \
+                    f"{path.name}:{node.lineno} launches off its tensors' card"
+                launched[node.args[3].attr] = node.lineno
+        for entry in launched:
+            assert entry.startswith("qvz_") and entry not in queries
