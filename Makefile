@@ -50,3 +50,25 @@ asan:
 clean:
 	rm -rf $${QVZ_TPU_CACHE:-$$HOME/.cache/qvz_tpu}
 	find . -name __pycache__ -type d -exec rm -rf {} +
+
+# The same two builds over qvz_tpu_torch's own runtime and harness
+# (qvz_tpu_torch/native/sanitize_harness.cpp), into $(TORCH_SAN_OUT).
+# tests/test_torch_sanitize.py runs both with TORCH_SAN_OUT set to a
+# temporary directory.
+TORCH_NATIVE_DIR := qvz_tpu_torch/native
+TORCH_SAN_OUT ?= build
+TORCH_SAN_FLAGS := -O1 -g -std=c++17 -fno-omit-frame-pointer \
+  -I$(TORCH_NATIVE_DIR) \
+  $(TORCH_NATIVE_DIR)/qvz_rt.cpp $(TORCH_NATIVE_DIR)/sanitize_harness.cpp
+
+.PHONY: tsan-torch asan-torch
+
+tsan-torch:
+	mkdir -p $(TORCH_SAN_OUT)
+	$(CXX) -fsanitize=thread $(TORCH_SAN_FLAGS) -o $(TORCH_SAN_OUT)/qvz_torch_tsan
+	TSAN_OPTIONS="halt_on_error=1" $(TORCH_SAN_OUT)/qvz_torch_tsan
+
+asan-torch:
+	mkdir -p $(TORCH_SAN_OUT)
+	$(CXX) -fsanitize=address,undefined $(TORCH_SAN_FLAGS) -o $(TORCH_SAN_OUT)/qvz_torch_asan
+	ASAN_OPTIONS="detect_leaks=1" UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1" $(TORCH_SAN_OUT)/qvz_torch_asan

@@ -153,6 +153,19 @@ Phases:
      phase 5's container; python -m qvz_tpu_torch.tools.mse_check of the
      decoded text against phase 5's -u reconstruction (distortion 0) and
      of the input against it (phase 5's -s distortion)
+ 22. scripts/sanitize_torch.py's workload in a child interpreter
+     (--child none), the kernels from their line-info build: every kernel
+     of csrc/ in each of its code paths (K1 at -c 1 and -c 3; K2a in
+     layouts 0-2; K2b with the cluster-id segment; K3 modes 0 and 1; K4's
+     three sums modes, three tiles a block or more; K5 and its text-row
+     kernel in layouts 0-2, primed and unprimed; issue, mix and selmix)
+     equal to its plain version on the CPU, then the corrupt-container
+     corpus (52 column-major QVZ2 containers of 20,000 x 50 with lanes)
+     decoded with device="cuda" to the host decoder's outcome, K5
+     launched for each container whose host stages pass. The script's
+     compute-sanitizer runs (memcheck, racecheck, synccheck, initcheck)
+     are not part of this phase: the tool refuses a card inside a gVisor
+     sandbox ("Device not supported"), and there the script raises
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns, one call each. Each kernel's bound
@@ -1925,6 +1938,36 @@ def tools_phase(np, data, dist, containers, distortion: float) -> None:
         shutil.rmtree(td, ignore_errors=True)
 
 
+def sanitizer_phase() -> dict:
+    """Phase 22 (see the module docstring): scripts/sanitize_torch.py
+    --child none in a child interpreter, without the caching allocator as
+    under the sanitizer. Returns the child's record."""
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "sanitize_torch.py"), "--child", "none"],
+        capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTORCH_NO_CUDA_MEMORY_CACHING": "1"})
+    secs = time.perf_counter() - t
+    require(r.returncode == 0, f"[22] sanitize_torch.py --child none: "
+            f"exit {r.returncode}: {(r.stdout + r.stderr)[-4000:]}")
+    rec = json.loads(r.stdout.splitlines()[-1])
+    for name in rec["kernels"]:
+        require(rec["launches"].get(name, 0) > 0, f"[22] {name} launched")
+    c = rec["corpus"]
+    require(c["containers"] >= 40 and c["reached_k5"] > 0,
+            "[22] the corpus reached K5")
+    print(f"[22] every kernel of csrc/ in {len(rec['paths'])} code paths "
+          f"equal to its plain version (launches {rec['launches']}); "
+          f"corrupt corpus: {c['containers']} containers, {c['raised']} "
+          f"raised and {c['decoded']} decoded as the host decoder, "
+          f"{c['reached_k5']} through K5 ({c['flagged_lanes']} lanes "
+          f"flagged and decoded again on the host), {c['seconds']:.1f} s; "
+          f"child {rec['seconds']:.1f} s of {secs:.1f} s", flush=True)
+    print(f"[22] code paths: {'; '.join(rec['paths'])}", flush=True)
+    return rec
+
+
 def microbench_phase() -> list:
     """Phase 15: the microbenchmark's legs (qvz_tpu_torch.microbench);
     returns its three kernels' entries of the kernels line."""
@@ -2152,6 +2195,8 @@ def main() -> int:
                                           clus["counts8"], dist)["hist"]
     # -- 21. the tools --------------------------------------------------------
     tools_phase(np, data, dist, containers, distortion[True])
+    # -- 22. every kernel's code paths and the corrupt corpus ---------------
+    sanitizer_phase()
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [

@@ -9,6 +9,12 @@ repository root, loaded with ``ctypes`` (the pattern of
 a new build; ``rm -rf build/kernels`` forces one. The ``ptxas`` report
 (registers, spills) is kept beside the library as ``.log``.
 
+``load(lineinfo=True)`` loads a second build of the same sources with
+``-lineinfo`` added, ``libqvz_cuda_lineinfo_<sha16>.so``, whose
+compute-sanitizer reports name source lines
+(``scripts/sanitize_torch.py``); ``-lineinfo`` leaves the generated code
+as it is, where ``-G`` would not.
+
 A build failure raises. Nothing here runs at import time.
 """
 
@@ -39,18 +45,25 @@ NVCC_FLAGS = [
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
+_lib_lineinfo = False
 
 
 def sources() -> list[pathlib.Path]:
     return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
 
 
-def lib_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def nvcc_flags(lineinfo: bool = False) -> list[str]:
+    return NVCC_FLAGS + (["-lineinfo"] if lineinfo else [])
+
+
+def lib_path(lineinfo: bool = False) -> pathlib.Path:
+    flags = nvcc_flags(lineinfo)
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libqvz_cuda_{h.hexdigest()[:16]}.so"
+    name = "libqvz_cuda_lineinfo_" if lineinfo else "libqvz_cuda_"
+    return BUILD_DIR / f"{name}{h.hexdigest()[:16]}.so"
 
 
 def nvcc() -> str:
@@ -76,8 +89,9 @@ def _finish(cmd: list[str], proc: subprocess.Popen) -> str:
     return out
 
 
-def build(path: pathlib.Path) -> str:
+def build(path: pathlib.Path, lineinfo: bool = False) -> str:
     """Compile every source into `path`; returns the compiler's report."""
+    flags = nvcc_flags(lineinfo)
     path.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=path.parent) as td:
         tmp = pathlib.Path(td) / path.name
@@ -85,7 +99,7 @@ def build(path: pathlib.Path) -> str:
         jobs = []
         for src in (s for s in sources() if s.suffix == ".cu"):
             objs.append(str(pathlib.Path(td) / f"{src.stem}.o"))
-            cmd = [nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", objs[-1]]
+            cmd = [nvcc(), *flags, "-c", str(src), "-o", objs[-1]]
             jobs.append((cmd, _start(cmd)))
         try:
             report = "".join(_finish(cmd, proc) for cmd, proc in jobs)
@@ -94,21 +108,27 @@ def build(path: pathlib.Path) -> str:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        link = [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
+        link = [nvcc(), *flags[:2], "-shared", "-o", str(tmp), *objs]
         report += _finish(link, _start(link))
         path.with_suffix(".log").write_text(report)
         os.replace(tmp, path)
     return report
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built first if this source hash has none."""
-    global _lib
+def load(lineinfo: bool = False) -> ctypes.CDLL:
+    """The kernel library, built first if this source hash has none. The
+    first call of a process decides which build every wrapper launches
+    from: lineinfo=True takes the line-info build, and asking for it
+    after the plain build is loaded raises."""
+    global _lib, _lib_lineinfo
     if _lib is not None:
+        if lineinfo and not _lib_lineinfo:
+            raise RuntimeError("the kernel library without -lineinfo is "
+                               "already loaded in this process")
         return _lib
-    path = lib_path()
+    path = lib_path(lineinfo)
     if not path.exists():
-        build(path)
+        build(path, lineinfo)
     lib = ctypes.CDLL(str(path))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.qvz_quantize.argtypes = [p, p, p, i64, i32, p, p, p, p, p, p, p]
@@ -139,7 +159,7 @@ def load() -> ctypes.CDLL:
     lib.qvz_microbench_issue.restype = ctypes.c_int
     lib.qvz_microbench_mix.argtypes = [i32, i32, p, p, i64, i32, i32, p, p]
     lib.qvz_microbench_mix.restype = ctypes.c_int
-    _lib = lib
+    _lib, _lib_lineinfo = lib, lineinfo
     return lib
 
 

@@ -45,15 +45,16 @@ def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
                    distortion: int = DISTORTION_MSE,
                    distortion_file: str | None = None,
                    cluster_threshold: float = 4.0,
-                   shards: int = 0,
+                   shards: int = 1,
                    well_seed: bytes | None = None,
                    debug_seed: bool = False,
                    prime: bool = True,
                    device: str = "cuda",
                    **encode_kw):
     """Compress raw quality-file bytes into a container. Returns
-    (container bytes, stats). shards=0 picks the device lane count;
-    shards=1 gives the reference-compatible v1 container. encode_kw
+    (container bytes, stats). shards=1, the default as in qvz_tpu, gives
+    the reference-compatible v1 container; shards=0 picks the device lane
+    count and N >= 2 pins it (QVZ2). encode_kw
     (reuse_blocks, verbose, mesh) go to pipeline.encode.encode, which
     refuses any other keyword, qvz_tpu's use_jax among them."""
     from qvz_tpu_torch.pipeline import encode as enc_mod

@@ -4,22 +4,21 @@ and with ``python -m qvz_tpu``.
 Usage: python -m qvz_tpu_torch (options) [input file] [output file]
 
 Flags as ``python -m qvz_tpu`` (src/main.c:166-184): -q/-x/-f/-r/-d/-D/
--c/-T/-u/-h/-s/-v, --debug-seed, --well-state F, --shards N (0, the
-default, picks the device lane count; N >= 2 pins it), --no-prime,
---reuse-books F, --profile D, --hosts N and --streaming, plus
+-c/-T/-u/-h/-s/-v, --debug-seed, --well-state F, --shards N (1, the
+default, as in qvz_tpu; 0 picks the device lane count; N >= 2 pins it),
+--no-prime, --reuse-books F, --profile D, --hosts N and --streaming, plus
 --device cuda|cpu (default cuda), which takes the place of --jax and
 goes to every branch.
 -c K > 1 clusters the reads with k-means on the device first.
 --shards 1 codes the reference-compatible v1 container on the host engine
-after the device statistics.
+after the device statistics; --shards 0 or N >= 2 codes the sharded QVZ2
+container's lanes on the device.
 --streaming runs the bounded-memory encode (pipeline/streaming.py): the
 statistics chunk by chunk on K3, the quantization shard by shard on K1,
 the coding on host threads, the container written as it goes. An input
 of QVZ_TPU_STREAM_MIN_BYTES (default 1 GiB) or more streams without the
-flag unless --shards 1, -u or --reuse-books is given, as in qvz_tpu;
-since the port's --shards defaults to 0 (QVZ2), a default encode of a
-file of 1 GiB or more streams, where qvz_tpu's default (--shards 1, v1)
-does not.
+flag unless --shards 1 (the default), -u or --reuse-books is given, as in
+qvz_tpu.
 --hosts N encodes across N worker processes (parallel/multihost.py;
 streaming workers with --streaming or at the size threshold) and, with
 -x, decodes a QVZ2 container across N worker processes on the host.
@@ -71,8 +70,8 @@ def usage(name: str) -> None:
     print("   --debug-seed : Use the fixed WELL seed (reproducible bitstreams)")
     print("   --well-state F : Load a raw 128-byte WELL state from F")
     print("   --shards N   : QVZ2 container with N parallel streams (0 = pick")
-    print("                  for the device, the default; N >= 2 pins it;")
-    print("                  1 = the reference-compatible v1 container)")
+    print("                  for the device; N >= 2 pins it; 1 = the")
+    print("                  reference-compatible v1 container, the default)")
     print("   --no-prime   : Disable QVZ2 shard priming")
     print("   --reuse-books F : Reuse the codebooks of a previous compressed file F")
     print("                  (skips the statistics + design phases)")
@@ -93,7 +92,7 @@ def main(argv=None) -> int:
         "verbose": False, "stats": False, "ratio": 0.5, "clusters": 1,
         "uncompressed": None, "distortion": DISTORTION_MSE,
         "mode": MODE_RATIO, "cluster_threshold": 4.0, "dist_file": None,
-        "debug_seed": False, "well_state_file": None, "shards": 0,
+        "debug_seed": False, "well_state_file": None, "shards": 1,
         "prime": True, "device": "cuda", "reuse_books": None,
         "profile_dir": None, "hosts": 1, "streaming": False,
     }

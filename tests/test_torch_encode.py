@@ -336,13 +336,14 @@ def test_cli_streaming_matches_qvz_tpu(cli_input, tmp_path):
 
 
 @pytest.mark.parametrize("extra,streams", [
-    ([], True), (["--shards", "1"], False), (["-u", "recon"], False)],
-    ids=["auto", "shards1", "recon"])
+    (["--shards", "0"], True), (["--shards", "1"], False),
+    (["--shards", "0", "-u", "recon"], False), ([], False)],
+    ids=["auto", "shards1", "recon", "default"])
 def test_cli_auto_streaming(cli_input, tmp_path, monkeypatch, extra,
                             streams):
-    """At QVZ_TPU_STREAM_MIN_BYTES or more the default encode streams,
-    as qvz_tpu's does; never at --shards 1 (the v1 container) or with -u.
-    Either way the container is the in-memory encode's."""
+    """At QVZ_TPU_STREAM_MIN_BYTES or more a QVZ2 encode streams, as
+    qvz_tpu's does; never at --shards 1 (the v1 container, the default)
+    or with -u. Either way the container is the in-memory encode's."""
     monkeypatch.setenv("QVZ_TPU_STREAM_MIN_BYTES", "1000")
     monkeypatch.chdir(tmp_path)
     args = ["-v", "--debug-seed", "--device", "cpu", *extra]

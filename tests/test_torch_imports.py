@@ -3,6 +3,7 @@ qvz_tpu (only the tests import both), asks for its device explicitly, and
 builds its kernels only when a CUDA tensor needs them."""
 
 import ast
+import hashlib
 import os
 import pathlib
 import subprocess
@@ -80,7 +81,8 @@ def _port_files():
             + [root / "chip_smoke.py"]
             + [root / "scripts" / f for f in (
                 "profile_torch_encode.py", "time_k1_k4.py",
-                "compare_torch_e2e.py", "mesh_check_torch.py")])
+                "compare_torch_e2e.py", "mesh_check_torch.py",
+                "sanitize_torch.py")])
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -170,6 +172,48 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert len(path.stem.rsplit("_", 1)[1]) == 16
     assert {s.name for s in _build.sources()} >= {"quantize.cu", "coder.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_lineinfo_build_is_a_second_library(monkeypatch, tmp_path):
+    """load(lineinfo=True) builds the same sources with -lineinfo added
+    (never -G) into a library of its own name; the plain build's flags
+    and name stay as they were."""
+    assert _build.NVCC_FLAGS == [
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    assert _build.nvcc_flags() == _build.NVCC_FLAGS
+    assert _build.nvcc_flags(True) == _build.NVCC_FLAGS + ["-lineinfo"]
+    plain, lines = _build.lib_path(), _build.lib_path(lineinfo=True)
+    assert plain.parent == lines.parent == _build.BUILD_DIR
+    assert plain.name.startswith("libqvz_cuda_") and "lineinfo" not in \
+        plain.name
+    assert lines.name.startswith("libqvz_cuda_lineinfo_")
+    assert plain.stem[-16:] != lines.stem[-16:]
+    h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
+    for src in _build.sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    assert plain.name == f"libqvz_cuda_{h.hexdigest()[:16]}.so"
+    # the nvcc commands of each build
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!/bin/sh\necho \"$@\" >> {log}\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_lib", None)
+    for lineinfo in (False, True):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            _build.load(lineinfo=lineinfo)
+        calls = log.read_text().splitlines()
+        log.unlink()
+        assert calls and all(("-lineinfo" in c.split()) == lineinfo
+                             and "-G" not in c.split() for c in calls)
+    # the first load of a process decides the library of every wrapper
+    monkeypatch.setattr(_build, "_lib", object())
+    monkeypatch.setattr(_build, "_lib_lineinfo", False)
+    with pytest.raises(RuntimeError, match="lineinfo"):
+        _build.load(lineinfo=True)
 
 
 def test_build_failure_raises(monkeypatch, tmp_path):

@@ -319,7 +319,8 @@ def test_sass_loops_builds_the_library_first(monkeypatch, tmp_path):
     lib = tmp_path / "libqvz_cuda_0.so"
     built = []
 
-    def build(path):
+    def build(path, lineinfo=False):
+        assert not lineinfo
         built.append(path)
         path.write_bytes(b"")
         return ""
@@ -329,7 +330,7 @@ def test_sass_loops_builds_the_library_first(monkeypatch, tmp_path):
         return type("R", (), {"stdout": _fake_sass()})
 
     monkeypatch.setattr(_build, "_lib", None)
-    monkeypatch.setattr(_build, "lib_path", lambda: lib)
+    monkeypatch.setattr(_build, "lib_path", lambda lineinfo=False: lib)
     monkeypatch.setattr(_build, "build", build)
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: mock.MagicMock())
     monkeypatch.setattr(_build, "nvcc", lambda: "/cuda/bin/nvcc")
