@@ -22,12 +22,14 @@ Phases:
   3. K1 against its plain PyTorch version at the full shape: element-equal,
      timed in turns with it; its bound from its counted SASS (k1_bound)
   4. K2a (the triples) and K2b (the chain) each against its plain
-     version over all 100 columns of the slice's lane plan, one chunk:
-     triples and rescale flags element-equal; words, carry and flags
-     equal lane by lane, payload bytes equal; code_lanes equal to the
-     two in turn. K2a timed in turns with its plain version, K2b over
-     5 runs (its plain version once, tens of seconds); K2b's cycles a
-     step; both bounds from their counted SASS (coder_bounds)
+     version over all 100 columns of the slice's lane plan, one chunk,
+     with its count of models at risk (coder_device.risk_tables; none
+     at 1M x 100, so K2a runs without records): triples element-equal;
+     words and carry equal lane by lane, no lane overrun, payload bytes
+     equal; code_lanes equal to the two in turn. K2a timed in turns with
+     its plain version, K2b over 5 runs (its plain version once, tens of
+     seconds); K2b's cycles a step; both bounds from their counted SASS
+     (coder_bounds, the templates without records)
   5. the end-to-end encode, -c 1, through
      qvz_tpu_torch.pipeline.encode.encode, timed as the median of 5 runs
      without -u (the phase split is the last run's): the container
@@ -72,17 +74,28 @@ Phases:
      final (l, u, t, bit position) and the flags equal, and over all
      columns for the -c 1 primed container (the plain loop takes tens of
      seconds there); the kernel timed over all columns; the -c 3 lanes
-     start mid-byte after their host cluster-id prologue
+     start mid-byte after their host cluster-id prologue; each
+     container's count of models at risk
  12. the end-to-end decode of those containers through
      qvz_tpu_torch.pipeline.decode.decode(device="cuda"), median of 3
      runs beside the port's host decoder in the same call: byte-equal to
-     it and to the encode's -u reconstruction + 33, no lane flagged (K2
-     flagged none, and the flags are the encode's own rescale
-     condition), the decoder launched by the decodes; the first decode's
+     it and to the encode's -u reconstruction + 33, no lane flagged (only
+     a corrupt lane is), the decoder launched by the decodes; the first
+     decode's
      peak device memory (torch.cuda.max_memory_allocated), the host RSS
      before and after it and its waves of lanes
- 13. 300,000 x 2 at --shards 2, unprimed, whose two lanes reach the
-     rescale: flagged, decoded again on the host, byte-equal
+ 13. the rescale on the card: 300,000 x 2 at --shards 2, unprimed, whose
+     two lanes' models pass 2^19 (qvz_tpu flags both): the in-memory
+     encode on the card byte-equal to the host engine with
+     coder_fallback_lanes 0, and decode(device="cuda") byte-equal to the
+     host decoder with 0 lanes flagged, K2a, K2b and K5 launched; then
+     rescale_case: a -c 3 plan of 16 lanes of 36,000 reads whose lanes
+     rescale (one model twice in a lane), K2a and K5 in each of layouts
+     0, 1 and 2, forced, and K2b against their plain versions on the CPU,
+     every payload the host coder's and every decode the host decoder's,
+     each kernel timed (median of 3); and pending_runs: K2b at pending
+     runs of 31 to 100 bits against its plain version and a bit
+     writer
  14. K5 over all columns of the four containers at 32, 16, 8, 4, 2 and 1
      lanes a warp: equal output, median of 3 each
  15. the integer-issue microbenchmark (qvz_tpu_torch.microbench, the port
@@ -117,7 +130,11 @@ Phases:
      streams by itself (pipeline/streaming.py: K3 a chunk, K1 a shard, the
      coding on host threads); B, the same with -u and
      QVZ_TPU_STREAM_MIN_BYTES above the file's size, the in-memory device
-     encode; C, -x of A's container on the card. A's container equals
+     encode; C, -x of A's container on the card. Each child's encode and
+     decode are wrapped (STREAM_CHILD) to read B's coder_fallback_lanes
+     and host re-coding and C's fallback_lanes and phases: 0 lanes sent
+     to the host by either; the plan's models at risk and the bytes of
+     K2a's and K5's records (stream_risk). A's container equals
      B's, its -s rate, distortion and size B's, C's text B's -u file; A
      launched hist 11 times and quantize once a shard; A's peak RSS
      (ru_maxrss) is below B's by the input's size at least and its peak
@@ -156,9 +173,11 @@ Phases:
  22. scripts/sanitize_torch.py's workload in a child interpreter
      (--child none), the kernels from their line-info build: every kernel
      of csrc/ in each of its code paths (K1 at -c 1 and -c 3; K2a in
-     layouts 0-2; K2b with the cluster-id segment; K3 modes 0 and 1; K4's
-     three sums modes, three tiles a block or more; K5 and its text-row
-     kernel in layouts 0-2, primed and unprimed; issue, mix and selmix)
+     layouts 0-2, without and with the records of models that rescale;
+     K2b with the cluster-id segment, through rescales and at pending
+     runs of 31-100 bits; K3 modes 0 and 1; K4's three sums modes, three
+     tiles a block or more; K5 and its text-row kernel in layouts 0-2,
+     primed and unprimed, and with records; issue, mix and selmix)
      equal to its plain version on the CPU, then the corrupt-container
      corpus (52 column-major QVZ2 containers of 20,000 x 50 with lanes)
      decoded with device="cuda" to the host decoder's outcome, K5
@@ -200,17 +219,17 @@ BIG_K = 150
 
 def k5_bound(gpu, lanes, cols: int, live: int, sum_x: int):
     """K5's bound from its counted SASS (the layout the main path runs,
-    decode_lanes_kernel<0>): each loop's least trip by pipe
-    (microbench.trip_min) times its trips on this run's data, the same
-    lanes and steps as K2's (coder_phase's live steps and the sum of their
-    symbol indices). The serial steps, cols x n_lines trips, the live ones
-    through the reciprocal; the count search, sum_x trips. The chunks'
-    model resolution and output loops and the column staging are not
-    counted, so the bound is lower than the work. Bytes: the lanes'
-    draws, payloads and cluster ids in, the text rows and the lanes'
-    states out."""
+    decode_lanes_kernel<0, false>, without records): each loop's least
+    trip by pipe (microbench.trip_min) times its trips on this run's
+    data, the same lanes and steps as K2's (coder_phase's live steps and
+    the sum of their symbol indices). The serial steps, cols x n_lines
+    trips, the live ones through the reciprocal; the count search, sum_x
+    trips. The chunks' model resolution and output loops and the column
+    staging are not counted, so the bound is lower than the work. Bytes:
+    the lanes' draws, payloads and cluster ids in, the text rows and the
+    lanes' states out."""
     from qvz_tpu_torch import microbench as mb
-    f = _sass("decode_lanes_kernelILi0E")
+    f = _sass("decode_lanes_kernelILi0ELb0E")
     step = _loop(mb, f, "MUFU.RCP64H")
     search = _loop(mb, f, "LDS.U16", inside=step)
     for (h, e), op in ((step, "MUFU.RCP64H"), (search, "LDS.U16")):
@@ -384,8 +403,9 @@ def coder_bounds(gpu, plan_t, W: int, L: int, n_lines: int, cols: int,
         for k, v in per.items():
             total[k] = total.get(k, 0) + trips * v
 
-    # K2a's shared-memory layout, the one the main path runs
-    a, b = func("triples_kernelILi0E"), func("chain_kernel")
+    # K2a's shared-memory layout without records, the one the main path
+    # runs
+    a, b = func("triples_kernelILi0ELb0E"), func("chain_kernel")
     zero = _loop(mb, a, "STS.128")
     step = _loop(mb, a, "STG.E.64", without="BAR")
     prefix = _loop(mb, a, "LDS.U16", inside=step)
@@ -434,20 +454,19 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
                                          0, cols)
 
     a_ms, a_plain_ms, a_runs, _ = in_turns(a_kernel, a_plain, torch, runs=3)
-    (trip, resc), (trip_p, resc_p) = out.pop("a"), out.pop("ap")
-    err_a = max_err([trip, resc], [trip_p, resc_p])
-    require(err_a == 0 and torch.equal(trip, trip_p)
-            and torch.equal(resc, resc_p),
-            f"{tag} K2a's triples and rescale flags equal the plain "
-            f"version's over all {cols} columns")
+    trip, trip_p = out.pop("a"), out.pop("ap")
+    err_a = max_err([trip], [trip_p])
+    require(err_a == 0 and torch.equal(trip, trip_p),
+            f"{tag} K2a's triples equal the plain version's over all "
+            f"{cols} columns")
     del trip_p
+    risk = cd.risk_tables(plan_t, L)
 
     seg = (cd.segment_triples(ctrip, lane_counts, dev) if ctrip is not None
            else None)
 
     def start(chain):
         raw = cd.start_raw(W, dev, mw)
-        raw[2][5] |= resc.long()
         return chain(seg, 1, lane_counts, raw) if seg is not None else raw
 
     b_runs = []
@@ -465,17 +484,15 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
     full = cd.code_lanes(plan_t, mid, qs, lane_counts, base, ctrip)
     fetched = [cd.fetch_lanes(*r) for r in (got, want, full)]
     (wk, nk, ck), (wp, np_, cp), (wf, nf, cf) = fetched
-    fk = ck[5] != 0
-    require(np.array_equal(fk, cp[5] != 0) and np.array_equal(fk, cf[5] != 0),
-            f"{tag} K2b's flags equal the plain version's")
-    ok = ~fk
-    err_b = int(np.abs(ck[:5, ok] - cp[:5, ok]).max(initial=0))
-    for w in np.flatnonzero(ok):
+    require(not (ck[5] != 0).any() and not (cf[5] != 0).any(),
+            f"{tag} K2b ran past no lane's words")
+    err_b = int(np.abs(ck - cp).max(initial=0))
+    for w in range(W):
         if nk[w]:
             err_b = max(err_b, int(np.abs(wk[w, :nk[w]].astype(np.int64)
                                           - wp[w, :np_[w]].astype(np.int64)
                                           ).max()))
-    require(np.array_equal(nk[ok], np_[ok]) and err_b == 0,
+    require(np.array_equal(nk, np_) and err_b == 0,
             f"{tag} K2b's words and carry equal the plain version's")
     require(np.array_equal(nk, nf) and np.array_equal(ck, cf)
             and all(np.array_equal(wk[w, :nk[w]], wf[w, :nf[w]])
@@ -488,15 +505,16 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
     m = mid[:, base:base + N]
     live_m = (m > 0) & (plan_t["cards"].long()[m.long()] > 1)
     live = int((trip != 0).sum())
-    require(live == int(live_m.sum()) or fk.any(),
-            f"{tag} a triple for every live step")
+    require(live == int(live_m.sum()), f"{tag} a triple for every live step")
     sum_x = int(qs[:, base:base + N][live_m].sum())
     bounds = coder_bounds(
         gpu, plan_t, W, L, N, cols, live, sum_x,
         8 * cols * N + 8 * cols * L * W,
         8 * cols * N + 4 * int(nk.sum()) + (6 * 8 + 4) * W)
     cycles = b_ms * 1e-3 * gpu.hz / (cols * L)
-    print(f"{tag} K2a triples {W} lanes x {cols} columns x {L} lines: "
+    print(f"{tag} K2a triples {W} lanes x {cols} columns x {L} lines, "
+          f"{risk['models']} models at risk (records "
+          f"{8 * W * int(risk['roff_h'][-1])} B): "
           f"equal (max abs err {err_a}); kernel {a_ms:.3f} ms ({a_runs}), "
           f"plain {a_plain_ms:.3f} ms (median of 3, in turns); "
           f"{live} live steps, sum of symbol indices {sum_x}; bound "
@@ -505,7 +523,7 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
           f"{json.dumps(bounds['coder_triples'][3])})", flush=True)
     print(f"{tag} K2b chain {W} lanes x {cols * L} steps"
           f"{' after the cluster-id segment' if seg is not None else ''}: "
-          f"equal (max abs err {err_b}), {int(fk.sum())} flagged lanes; "
+          f"equal (max abs err {err_b}), 0 lanes flagged; "
           f"kernel {b_ms:.3f} ms (median of 5, {b_runs}), plain "
           f"{b_plain_ms:.1f} ms (one run); {cycles:.1f} cycles a step at "
           f"{gpu.hz / 1e6:.0f} MHz; bound {bounds['coder_chain'][0]:.4f} ms "
@@ -515,7 +533,7 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
     # each kernel at each lanes-a-warp setting: equal output, median of 3
     sweep = {}
     for lpw in LANES_SWEEP[:-1]:
-        t2 = cd.triples(plan_t, mid, qs, lane_counts, base, 0, cols, lpw)[0]
+        t2 = cd.triples(plan_t, mid, qs, lane_counts, base, 0, cols, lpw)
         require(torch.equal(t2, trip), f"{tag} K2a at {lpw} lanes a warp "
                 "equals the default")
         del t2
@@ -974,9 +992,11 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
     for K5's bound). Returns K5's error and times, the decodes' medians
     and their kernel launches."""
     from qvz_tpu_torch import _build
+    from qvz_tpu_torch.ops import coder_device as cd
     from qvz_tpu_torch.ops import decoder_device as dd
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import decode as port
+    from qvz_tpu_torch.pipeline import encode as penc
     from qvz_tpu_torch.pipeline import host
 
     res = {"err": 0, "ms": {}, "plain_ms": {}, "all_ms": {}, "e2e": {},
@@ -1015,7 +1035,9 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
             require(bool((lanes.starts[:, 3] % 8 != 0).any()),
                     f"{name}: some prologue lanes start mid-byte")
         steps = cols * max(lanes.lane_counts)
-        line = (f"[11] K5 {name}: {len(lanes.lane_counts)} lanes, 2 columns "
+        risk = cd.risk_tables(lanes.dplan_t, max(lanes.lane_counts))
+        line = (f"[11] K5 {name}: {len(lanes.lane_counts)} lanes, "
+                f"{risk['models']} models at risk, 2 columns "
                 f"equal to the plain version (max abs err {err}, "
                 f"{int((fk[:, 4] != 0).sum())} flagged lanes); 2 columns: "
                 f"kernel {k5:.3f} ms, plain {k5_plain:.3f} ms (median of 2, "
@@ -1092,22 +1114,44 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
     require(res["launches"].get("decoder", 0) >= 1,
             "the decode launched the decoder")
 
-    # -- 13. lanes that reach the rescale fall back to the host --------------
+    # -- 13. lanes that reach the rescale, on the card ----------------------
     rng = np.random.default_rng(1)
     data = np.clip(30 + rng.integers(-1, 2, size=(300_000, 2)).cumsum(1), 0,
                    71).astype(np.uint8)
-    comp = host.encode(data, dist, well_state=WellState.debug(), shards=2,
-                       prime=False).compressed
+    ref = host.encode(data, dist, well_state=WellState.debug(), shards=2,
+                      prime=False)
+    comp = ref.compressed
+    _build.LAUNCHES.clear()
+    t = time.perf_counter()
+    enc = penc.encode(data, dist, well_state=WellState.debug(), shards=2,
+                      prime=False, device="cuda")
+    enc_secs = time.perf_counter() - t
     st = {}
+    t = time.perf_counter()
     got = port.decode(comp, device="cuda", stats=st)
-    require(st["fallback_lanes"] >= 1, "a lane reaching the rescale is "
-            "flagged")
-    require(np.array_equal(got, host.decode(comp)),
-            "the fallback decode is byte-equal to the host decoder")
-    print(f"[13] 300000 x 2, 2 lanes: {st['fallback_lanes']} flagged and "
-          f"decoded again on the host, byte-equal; phases "
+    dec_secs = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    require(enc.compressed == comp and enc.stats.coder_fallback_lanes == 0,
+            "the device encode of the rescale input is byte-equal to the "
+            "host engine, no lane coded on the host")
+    require(np.array_equal(got, host.decode(comp))
+            and st["fallback_lanes"] == 0,
+            "the device decode of the rescale input is byte-equal to the "
+            "host decoder, no lane flagged")
+    for name in ("coder_triples", "coder_chain", "decoder"):
+        require(launches.get(name, 0) >= 1, f"[13] launched {name}")
+    lanes = port.prepare_lanes(comp, "cuda")
+    risk = cd.risk_tables(lanes.dplan_t, max(lanes.lane_counts))
+    require(risk["models"] >= 1, "the rescale input has models at risk")
+    del lanes
+    print(f"[13] 300000 x 2, 2 lanes, unprimed: {risk['models']} models at "
+          f"risk; encode on the card {enc_secs:.3f} s, byte-equal to the "
+          f"host engine, coder_fallback_lanes 0; decode(device='cuda') "
+          f"{dec_secs:.3f} s, byte-equal to the host decoder, 0 flagged; "
+          f"launches {launches}; decode phases "
           f"{json.dumps({k: round(v, 6) for k, v in st['phase_seconds'].items()})}",
           flush=True)
+    res["rescale"] = rescale_case(torch, np, dist)
 
     # -- 14. K5 at each lanes-a-warp setting -------------------------------
     for name, (comp, _) in containers.items():
@@ -1137,6 +1181,237 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
                   f"{k}: {v:.3f} ms" for k, v in res["sweep"][name].items()),
               flush=True)
         del lanes, first
+    return res
+
+
+RESCALE_LANES, RESCALE_LINES = 16, 36_000   # phase 13's rescale case
+
+
+def pending_runs(torch, np, dev="cuda") -> None:
+    """K2b against its plain version and a bit writer's bits at pending
+    runs of s3 = 31, 32, 53, 62, 63 and 100 bits (K2b's two emissions: up
+    to 32 bits at once, longer runs in pieces): one lane a run and half,
+    from the full interval with 5 bits pending, one step onto the lower
+    (first bit 0, the run of 1s) or the upper half (1, then 0s)."""
+    from qvz_tpu_torch.ops import coder_device as cd
+
+    runs = (31, 32, 53, 62, 63, 100)
+    W = 2 * len(runs)
+    raw = cd.start_raw(W, "cpu", 8)
+    raw[2][2] = torch.tensor(runs * 2)
+    raw[2][3], raw[2][4] = 0b10110, 5
+    upper = torch.arange(W) >= len(runs)
+    trip = cd.pack_triples(upper.long(), upper.long() + 1,
+                           torch.full((W,), 2))[None]
+    want = cd.fetch_lanes(*cd.chain_reference(trip, 1, [1] * W,
+                                              [r.clone() for r in raw]))
+    got = cd.fetch_lanes(*cd.chain(trip.to(dev), 1, [1] * W,
+                                   [r.to(dev) for r in raw]))
+    require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+            "K2b equals its plain version at pending runs of 31-100 bits")
+    words, n_words, carry = want
+    for w, s3 in enumerate(runs * 2):
+        first = int(upper[w])
+        bits = "10110" + str(first) + str(1 - first) * s3
+        nw = len(bits) // 32
+        rest = bits[32 * nw:]
+        require(int(n_words[w]) == nw and all(
+            int(words[w, k]) & 0xFFFFFFFF == int(bits[32 * k:32 * k + 32], 2)
+            for k in range(nw)) and int(carry[4, w]) == len(rest)
+                and int(carry[3, w]) == int(rest or "0", 2)
+                and int(carry[2, w]) == 0,
+                f"K2b's bits at a pending run of {s3} are the bit writer's")
+
+
+def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
+                 lines=RESCALE_LINES, rescales=2, tag="[13]") -> dict:
+    """Phase 13's rescale case: K2a, K2b and K5 against their plain
+    versions (on CPU tensors, the same inputs) in each of layouts 0, 1 and
+    2, forced, on a -c 3 plan whose lanes rescale. `lanes` lanes of about
+    `lines` reads x 1 column (30 or 31 at -f 1.0: one model a cluster),
+    cluster ids 0 for 97% of the reads, unprimed but for a bank whose
+    models of clusters 0 and 1 start 24 and 8,000 short of 2^19: cluster
+    0's model rescales `rescales` times or more in lane 0 (counted by a
+    replay of the host's update; twice at the defaults), cluster 1's once
+    where its lanes are long enough. K2b is held against its plain
+    version over the column, both from K2b's state after the cluster-id
+    segment (phase 9 holds the segment); every lane's payload equals the
+    host coder's, its decode the host decoder's, and no lane is flagged.
+    Then pending_runs. Returns the kernels' times (ms) and the plain
+    versions' (ms, CPU)."""
+    from qvz_tpu_torch.constants import ARITH_R, MODE_RATIO
+    from qvz_tpu_torch.native import runtime as rt
+    from qvz_tpu_torch.ops import coder_device as cd
+    from qvz_tpu_torch.ops import decoder_device as dd
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline import host
+
+    W, cols, K = lanes, 1, 3
+    n = W * lines - lines // 50                    # a ragged last lane
+    rng = np.random.default_rng(13)
+    data = (30 + rng.integers(0, 2, (n, cols))).astype(np.uint8)
+    cl = np.where(rng.random(n) < 0.97, 0,
+                  rng.integers(1, K, n)).astype(np.uint8)
+    c0, cond = rt.stats_host(data, cl, K)
+    tables = rt.Design(c0, cond, MODE_RATIO, 1.0, dist).tables()
+    counts, states, offs, _ = host.shard_plan(n, cols, W, False,
+                                              WellState.debug())
+    lane_counts = [int(c) for c in counts]
+    md = np.empty((cols, n), np.uint32)
+    qs = np.empty((cols, n), np.uint8)
+    for w in range(W):
+        lo, hi = offs[w], offs[w + 1]
+        md[:, lo:hi], qs[:, lo:hi], _, _ = rt.quantize_colmajor(
+            tables, np.ascontiguousarray(data[lo:hi].T), cl[lo:hi],
+            states[w])
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    moff = np.asarray(tables.model_off, dtype=np.int64)
+    bcounts = np.ones(int(moff[-1]), dtype=np.uint32)
+    totals = cards.astype(np.uint32)
+    busy = []
+    for k, short in ((0, 24), (1, 8000)):
+        ids, f = np.unique(md[0][cl == k], return_counts=True)
+        m = int(ids[f.argmax()])
+        require(cards[m] > 1, f"cluster {k}'s model is live")
+        bcounts[moff[m]] = ARITH_R - short - (cards[m] - 1)
+        totals[m] = ARITH_R - short
+        busy.append(m)
+    bank = np.concatenate([bcounts, totals])
+
+    # the host's update of cluster 0's model over lane 0: its rescales
+    m = busy[0]
+    c = bcounts[moff[m]:moff[m] + cards[m]].astype(np.int64)
+    twice = 0
+    for x in qs[0, :lane_counts[0]][md[0, :lane_counts[0]] == m]:
+        c[x] += 8
+        if c.sum() > ARITH_R:
+            c = (c >> 1) + 1
+            twice += 1
+    require(twice >= rescales,
+            f"a model rescales {rescales} times in lane 0 ({twice})")
+
+    pays = [rt.encode_precomputed_colmajor(
+        tables, np.ascontiguousarray(md[:, offs[w]:offs[w + 1]]),
+        np.ascontiguousarray(qs[:, offs[w]:offs[w + 1]]),
+        cl[offs[w]:offs[w + 1]], lane_counts[w], init_bank=bank)
+        for w in range(W)]
+    plan = cd.LanePlan(tables, bank)
+    plan_c, plan_d = cd.plan_to_torch(plan, "cpu"), cd.plan_to_torch(plan,
+                                                                      dev)
+    ct = np.zeros((W, max(lane_counts), 3), dtype=np.uint32)
+    for w in range(W):
+        ct[w, :lane_counts[w]] = rt.replay_model(
+            plan.cluster_init_counts, plan.cluster_init_total,
+            cl[offs[w]:offs[w + 1]])
+    mid_c = torch.from_numpy(md.astype(np.int32))
+    qs_c = torch.from_numpy(qs.astype(np.int32))
+    mid_d, qs_d = mid_c.to(dev), qs_c.to(dev)
+    L = max(lane_counts)
+    risk = cd.risk_tables(plan_d, L)
+    require(risk["models"] >= 1, f"models at risk: {risk['models']}")
+    res = {"a_ms": {}, "k5_ms": {}, "plain_ms": {}}
+
+    def ms(fn, runs=3):
+        return statistics.median(event_ms(fn, torch) for _ in range(runs))
+
+    # -- K2a ---------------------------------------------------------------
+    t = time.perf_counter()
+    trip_p = cd.triples_reference(plan_c, mid_c, qs_c, lane_counts, 0, 0,
+                                  cols)
+    res["plain_ms"]["coder_triples"] = (time.perf_counter() - t) * 1e3
+    for lay in (0, 1, 2):
+        def a_run():
+            return cd.triples(plan_d, mid_d, qs_d, lane_counts, 0, 0, cols,
+                              layout=lay)
+
+        require(torch.equal(a_run().cpu(), trip_p),
+                f"{tag} K2a in layout {lay} equals its plain version on the "
+                "rescale case")
+        res["a_ms"][lay] = ms(a_run)
+
+    # -- K2b over the column, from its state after the cluster-id segment --
+    mw = -(-(cols + 1) * L * cd.BITS_PER_STEP_BOUND // 32) + 2
+    seg_d = cd.segment_triples(ct, lane_counts, dev)
+    trip_d = trip_p.to(dev)
+    after = [r.cpu().clone() for r in cd.chain(seg_d, 1, lane_counts,
+                                                cd.start_raw(W, dev, mw))]
+    t = time.perf_counter()
+    want = cd.chain_reference(trip_p, cols, lane_counts, after)
+    res["plain_ms"]["coder_chain"] = (time.perf_counter() - t) * 1e3
+    b_runs = []
+    for _ in range(3):
+        raw = [r.to(dev).clone() for r in after]
+        box = []
+        b_runs.append(ms(lambda: box.append(
+            cd.chain(trip_d, cols, lane_counts, raw)), 1))
+    got = box[0]
+    res["b_ms"] = statistics.median(b_runs)
+    (wk, nk, ck), (wp, np_, cp) = (cd.fetch_lanes(*r) for r in (got, want))
+    require(np.array_equal(nk, np_) and np.array_equal(ck, cp)
+            and all(np.array_equal(wk[w, :nk[w]], wp[w, :np_[w]])
+                    for w in range(W)),
+            f"{tag} K2b equals its plain version on the rescale case")
+    require(cd.payloads_from_raw(wk, nk, ck)[0] == pays,
+            f"{tag} K2 gives the host coder's payload in every lane")
+    full = cd.encode_lanes_raw(plan_d, mid_d, qs_d, lane_counts, 0, ct)
+    require(full[0] == pays and not full[1].any(),
+            f"{tag} code_lanes gives the host coder's payloads, no lane "
+            "flagged")
+
+    # -- K5: after each lane's cluster-id prologue on the host -------------
+    pro = [rt.decode_cluster_prologue(tables, p, cnt, init_bank=bank)
+           for p, cnt in zip(pays, lane_counts)]
+    require(np.array_equal(np.concatenate([p[0] for p in pro]), cl),
+            f"{tag} the prologues give the cluster ids")
+    starts = torch.tensor([p[1:] for p in pro], dtype=torch.int64)
+    draws_t = torch.from_numpy(np.ascontiguousarray(
+        host._shard_draws(states, lane_counts, cols).T))
+    cl_c = torch.from_numpy(cl)
+    dplan = dd.DecodePlan(plan, tables)
+    args_c = (dd.decode_plan_to_torch(dplan, "cpu"),
+              dd.pack_payloads(pays, "cpu"), draws_t, cl_c, lane_counts, 0,
+              starts)
+    args_d = (dd.decode_plan_to_torch(dplan, dev),
+              dd.pack_payloads(pays, dev), draws_t.to(dev), cl_c.to(dev),
+              lane_counts, 0, starts.to(dev))
+    out_p = torch.zeros((n, cols + 1), dtype=torch.uint8)
+    t = time.perf_counter()
+    fin_p = dd.decode_lanes_reference(*args_c, out_p, 33)
+    res["plain_ms"]["decoder"] = (time.perf_counter() - t) * 1e3
+    want_rows = np.concatenate([rt.decode_colmajor(
+        tables, pays[w], lane_counts[w], states[w], init_bank=bank)
+        for w in range(W)])
+    require(np.array_equal(out_p.numpy(), want_rows)
+            and not (fin_p[:, 4] != 0).any(),
+            f"{tag} K5's plain version gives the host decoder's rows, no lane "
+            "flagged")
+    for lay in (0, 1, 2):
+        out_k = torch.zeros((n, cols + 1), dtype=torch.uint8, device=dev)
+
+        def k5_run():
+            return dd.decode_lanes_t(*args_d, out_k, 33, layout=lay)
+
+        fin_k = k5_run()
+        require(torch.equal(fin_k.cpu(), fin_p)
+                and torch.equal(out_k.cpu(), out_p),
+                f"{tag} K5 in layout {lay} equals its plain version on the "
+                "rescale case")
+        res["k5_ms"][lay] = ms(k5_run)
+    pending_runs(torch, np, dev)
+    print(f"{tag} rescale case, -c {K}, {W} lanes of {lane_counts[0]} reads "
+          f"(last {lane_counts[-1]}) x {cols} column: {risk['models']} "
+          f"models at risk (K2a records {8 * W * int(risk['roff_h'][-1])} B, "
+          f"K5 {8 * W * risk['rec_max']} B), cluster 0's model rescaling "
+          f"{twice} times in lane 0; every lane's payload the host coder's "
+          f"and its decode the host decoder's, 0 flagged; equal to the plain "
+          f"versions: K2a layouts 0/1/2 "
+          + "/".join(f"{v:.3f}" for v in res["a_ms"].values())
+          + f" ms, K2b {res['b_ms']:.3f} ms, K5 layouts 0/1/2 "
+          + "/".join(f"{v:.3f}" for v in res["k5_ms"].values())
+          + " ms (median of 3); plain on the CPU, one run: "
+          + ", ".join(f"{k} {v:.0f} ms" for k, v in res["plain_ms"].items())
+          + "; K2b at pending runs of 31-100 bits equal to its plain version "
+          "and the bit writer", flush=True)
     return res
 
 
@@ -1254,12 +1529,12 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
             return cd.triples(plan_t, mid, qs, lane_counts, base, 0, cols,
                               layout=lay)
 
-        trip, resc = a_run()
-        require(torch.equal(trip, want[0]) and torch.equal(resc, want[1]),
+        trip = a_run()
+        require(torch.equal(trip, want),
                 f"-c {K}: K2a in layout {lay} equals its plain version")
         a_ms[lay] = statistics.median(event_ms(a_run, torch)
                                       for _ in range(3))
-    del want, trip, resc, mid, qs, data_t, draws_t
+    del want, trip, mid, qs, data_t, draws_t
 
     lanes = pdec.prepare_lanes(out.compressed, "cuda")
     rows = torch.zeros((lanes.draws_t.shape[1], cols + 1), dtype=torch.uint8,
@@ -1299,14 +1574,44 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
 # qvz_tpu_torch.cli.main on its arguments and prints one JSON line: its
 # return code, the context's seconds and cli.main's, its kernel launches,
 # its peak device memory, and its peak resident set (ru_maxrss, kB) with
-# the context up and at the end.
+# the context up and at the end. It wraps the pipeline's encode and decode,
+# so the CLI's output is unchanged: the encode's coder_fallback_lanes, the
+# host seconds and calls of rt.encode_precomputed_colmajor on the main
+# thread inside the encode (the re-coding of flagged lanes; the warmup
+# shard is coded in another thread), and the decode's fallback_lanes and
+# phases.
 STREAM_CHILD = r"""
-import json, resource, sys, time
+import json, resource, sys, threading, time
 import torch
 from qvz_tpu_torch import _build, cli
+from qvz_tpu_torch.pipeline import decode as dm, encode as em
 t = time.perf_counter()
 torch.zeros(1, device="cuda")
 base = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+seen = {}
+enc, dec, code = em.encode, dm.decode, em.rt.encode_precomputed_colmajor
+def encode(*a, **k):
+    seen.update(recode_s=0.0, recode_calls=0)
+    out = enc(*a, **k)
+    seen["coder_fallback_lanes"] = out.stats.coder_fallback_lanes
+    seen["encode_phases"] = dict(out.stats.phase_seconds)
+    return out
+def recode(*a, **k):
+    t0 = time.perf_counter()
+    r = code(*a, **k)
+    if "recode_s" in seen and threading.current_thread() is \
+            threading.main_thread():
+        seen["recode_s"] += time.perf_counter() - t0
+        seen["recode_calls"] += 1
+    return r
+def decode(*a, **k):
+    st = k.setdefault("stats", {})
+    r = dec(*a, **k)
+    seen["fallback_lanes"] = st.get("fallback_lanes")
+    seen["decode_phases"] = st.get("phase_seconds")
+    return r
+em.encode, dm.decode, em.rt.encode_precomputed_colmajor = \
+    encode, decode, recode
 t1 = time.perf_counter()
 rc = cli.main(["qvz_tpu_torch", *sys.argv[1:]])
 secs = time.perf_counter() - t1
@@ -1314,7 +1619,7 @@ print(json.dumps({"rc": rc, "init_s": t1 - t, "secs": secs,
                   "launches": dict(_build.LAUNCHES),
                   "peak": torch.cuda.max_memory_allocated(),
                   "base_kb": base, "hwm_kb": resource.getrusage(
-                      resource.RUSAGE_SELF).ru_maxrss}))
+                      resource.RUSAGE_SELF).ru_maxrss, "seen": seen}))
 """
 
 STREAM_BLOCKS = 11           # phase 17: 11 x 1,000,000 reads x 100 columns
@@ -1401,6 +1706,35 @@ def streamed_shards_k1(torch, np, src: str, qpath: str, n: int, cols: int,
     return {"err": max(errs)}
 
 
+def stream_risk(np, qpath: str) -> dict:
+    """The models at risk of a column-major container's lanes (its tables
+    and its warmup shard's bank, as the encode and the decode plan them):
+    their count, and the bytes of K2a's records (over all columns, and in
+    the largest chunk of columns) and of K5's (the largest wave's lanes)."""
+    from qvz_tpu_torch.native import runtime as rt
+    from qvz_tpu_torch.ops import coder_device as cd
+    from qvz_tpu_torch.pipeline import decode as pdec
+
+    comp = np.memmap(qpath, dtype=np.uint8, mode="r")
+    head, tables = pdec._parse(comp)
+    s0 = head.shards[0]
+    _, bank = rt.decode_colmajor(tables, pdec._payload(comp, head, 0),
+                                 s0.lines, pdec._well(s0), want_bank=True)
+    lens = [s.lines for s in head.shards[1:]]
+    W, L = len(lens), max(lens)
+    risk = cd.risk_tables(cd.plan_to_torch(cd.LanePlan(tables, bank), "cpu"),
+                          L)
+    roff = risk["roff_h"]
+    k = cd.chunk_columns(head.columns, W, L, risk["rec_max"])
+    chunk = max(int(roff[min(c0 + k, head.columns)] - roff[c0])
+                for c0 in range(0, head.columns, k))
+    wave = max(len(w) for w in pdec._waves(head))
+    del comp
+    return {"models": risk["models"], "k2a_bytes": 8 * W * int(roff[-1]),
+            "k2a_chunk_bytes": 8 * W * chunk, "chunk_columns": k,
+            "k5_bytes": 8 * wave * risk["rec_max"]}
+
+
 def streamed_clustered(np, data, containers, td: str) -> dict:
     """encode_streaming on the card at -c 3 -T 4 of phase 2's input at
     phase 10's shard count, in chunks of 300,000 reads (K3 on each
@@ -1439,6 +1773,33 @@ def streamed_clustered(np, data, containers, td: str) -> dict:
     return {"launches": launches, "secs": secs}
 
 
+def write_stream_input(np, data, src: str) -> int:
+    """Phase 17's input: STREAM_BLOCKS x 1,000,000 reads x 100 columns
+    (1.111 GB) written to `src` in 1,000,000-read blocks of the phase-2
+    generator with seeds 42 on (42's is `data`, phase 2's input, or made
+    here where None; the others made four at a time). Returns its size."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n, cols = STREAM_BLOCKS * 1_000_000, 100
+    t = time.perf_counter()
+
+    def block(seed):
+        q = data if seed == 42 and data is not None \
+            else make_input(1_000_000, cols, seed)
+        return np.concatenate(
+            [q + 33, np.full((len(q), 1), 10, np.uint8)], 1).tobytes()
+
+    with open(src, "wb") as f, ThreadPoolExecutor(4) as ex:
+        for raw in ex.map(block, range(42, 42 + STREAM_BLOCKS)):
+            f.write(raw)
+    size = os.path.getsize(src)
+    require(size == n * (cols + 1) and size >= 2 ** 30,
+            f"the input is {size} B, at least 1 GiB")
+    print(f"[17] wrote {n} x {cols} ({size} B) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return size
+
+
 def streamed_phase(torch, np, data, containers, gpu) -> dict:
     """Phase 17: a streamed encode of more than 1 GiB. 11,000,000 x 100
     reads (1.111 GB) written in 1,000,000-read blocks of the phase-2
@@ -1467,22 +1828,7 @@ def streamed_phase(torch, np, data, containers, gpu) -> dict:
     try:
         n, cols = STREAM_BLOCKS * 1_000_000, 100
         src = os.path.join(td, "in")
-        t = time.perf_counter()
-
-        def block(seed):
-            q = data if seed == 42 else make_input(1_000_000, cols, seed)
-            return np.concatenate(
-                [q + 33, np.full((len(q), 1), 10, np.uint8)], 1).tobytes()
-
-        from concurrent.futures import ThreadPoolExecutor
-        with open(src, "wb") as f, ThreadPoolExecutor(4) as ex:
-            for raw in ex.map(block, range(42, 42 + STREAM_BLOCKS)):
-                f.write(raw)
-        size = os.path.getsize(src)
-        require(size == n * (cols + 1) and size >= 2 ** 30,
-                f"the input is {size} B, at least 1 GiB")
-        print(f"[17] wrote {n} x {cols} ({size} B) in "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
+        size = write_stream_input(np, data, src)
         common = ["-f", "0.5", "--debug-seed", "--shards",
                   str(STREAM_SHARDS), "-s", "-v"]
         p = {k: os.path.join(td, k)
@@ -1539,6 +1885,24 @@ def streamed_phase(torch, np, data, containers, gpu) -> dict:
                   f"device memory {r['peak'] / 2**20:.1f} MiB; peak RSS "
                   f"{r['hwm_kb'] / 2**10:.1f} MiB ({r['base_kb'] / 2**10:.1f}"
                   " MiB with the context up)", flush=True)
+        # the lanes sent to the host: none
+        seen_b, seen_c = b["seen"], c["seen"]
+        require(seen_b["coder_fallback_lanes"] == 0
+                and seen_b["recode_calls"] == 0,
+                f"B codes every lane on the card: {seen_b}")
+        require(seen_c["fallback_lanes"] == 0,
+                f"C decodes every lane on the card: {seen_c}")
+        risk = stream_risk(np, p["A.q"])
+        print(f"[17] B: coder_fallback_lanes {seen_b['coder_fallback_lanes']}"
+              f", {seen_b['recode_calls']} lanes re-coded on the host in "
+              f"{seen_b['recode_s']:.3f} s; C: fallback_lanes "
+              f"{seen_c['fallback_lanes']}, phases "
+              f"{json.dumps(seen_c['decode_phases'])}; the plan has "
+              f"{risk['models']} models at risk: K2a's records "
+              f"{risk['k2a_bytes']} B over all columns, "
+              f"{risk['k2a_chunk_bytes']} B in a chunk of "
+              f"{risk['chunk_columns']} columns; K5's {risk['k5_bytes']} B",
+              flush=True)
         k1 = streamed_shards_k1(torch, np, src, p["A.q"], n, cols, gpu)
         clus = streamed_clustered(np, data, containers, td)
         return {"launches": [r["launches"] for r in runs.values()]

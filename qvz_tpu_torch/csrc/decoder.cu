@@ -45,9 +45,12 @@
 //     staged initial count + 8 x its uses in this column, a u16 per slot;
 //     a model's total is its initial total + 8 x its uses, a u16 per
 //     model, so the summing pass goes. The whole block zeroes them at each
-//     column start with 16-byte stores. A u16 cannot wrap in a lane that
-//     is not flagged: 65,535 uses of a live model give a total of at least
-//     8 x 65,535 + 2 > 2^19 - 8, where the rescale flag is raised first.
+//     column start with 16-byte stores. A model that can rescale inside a
+//     lane (at risk: its initial total + 8 x the longest lane passes 2^19)
+//     reads a record of the lane's own counts in device memory in place
+//     of the initial tables, and its rescale halves that record exactly,
+//     as the host's ModelBank::update (rescale.cuh); a plan with no model
+//     at risk runs the template without records.
 //   * Exact division by a reciprocal: floor(a / n) with a = range x cum <
 //     2^42 and n <= 2^19 is q = floor(a x rcp(n)) in f64, then one
 //     correction: rcp is correctly rounded and the product adds one more
@@ -64,15 +67,17 @@
 //     decode; a block holds up to 32 lanes), so divergent steps of a warp
 //     serialise fewer lanes and an SM interleaves more warps.
 //
-// Flag contract (as the JAX kernel): bad (the tag left [l, u], an
-// unreachable context, or a search that ran past the model's last symbol,
-// which happens only when the tag left [l, u]), rescale (a live model's
-// total + 8 would pass 2^19, where the reference rescales) and overrun
-// (more than 64 bytes consumed past the payload). The caller decodes a
-// flagged lane again on the host.
+// Flags: bad (the tag left [l, u], an unreachable context, or a search
+// that ran past the model's last symbol, which happens only when the tag
+// left [l, u]) and overrun (more than 64 bytes consumed past the payload).
+// Only a corrupt stream raises them; the caller decodes such a lane again
+// on the host, so that the host decoder's error or output is the outcome.
+// Every rescale is decoded on the card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "rescale.cuh"
 
 namespace {
 
@@ -87,7 +92,7 @@ constexpr uint32_t kStep = 8;
 constexpr int kAlphabet = 72;
 constexpr int kOverrunBytes = 64;
 constexpr int kMaxLanesPerBlock = 32;
-constexpr int64_t kFlagBad = 1, kFlagRescale = 2, kFlagOverrun = 4;
+constexpr int64_t kFlagBad = 1, kFlagOverrun = 4;
 
 __device__ __forceinline__ uint64_t bswap64(uint64_t v) {
   const uint32_t lo = static_cast<uint32_t>(v);
@@ -172,6 +177,12 @@ __device__ __forceinline__ uint32_t exact_div(uint64_t a, uint32_t n,
 //   kLayout 2  the uses too in device memory, a scratch of lpb x (s_pad +
 //              m_pad) u16 for each block of lanes: a plan where one lane's
 //              uses alone do not fit. Every plan fits this layout.
+// kRescale: the plan has models at risk (rescale.cuh). rbase gives each
+// model's record offset in a lane's records of its column (-1: not at
+// risk), rsrc and roff each column's record sources from roff[c]; lane w's
+// records lie at rec + w x rmax, refilled at each column start. Without
+// kRescale no model can rescale, and the step reads the column's initial
+// tables alone.
 // Dynamic shared memory, in this order (every size a multiple of 8 bytes):
 //   mtab_s  int2[m_pad]           the column's model records       (0)
 //   init_s  int32[s_pad]          the column's initial counts      (0)
@@ -181,7 +192,7 @@ __device__ __forceinline__ uint32_t exact_div(uint64_t a, uint32_t n,
 //   tile    u16[lpb][lt]          the chunk's column-local model indices
 //   sym_s   u8[s_pad]             the column's symbol row          (0)
 //   symt    u8[lpb][lt]           the chunk's decoded symbols
-template <int kLayout>
+template <int kLayout, bool kRescale>
 __global__ void decode_lanes_kernel(
     const uint64_t* __restrict__ payload, const int64_t* __restrict__ pay_off,
     const int64_t* __restrict__ pay_len, const uint8_t* __restrict__ draws_t,
@@ -193,8 +204,10 @@ __global__ void decode_lanes_kernel(
     const int32_t* __restrict__ init_counts,
     const int32_t* __restrict__ col_slots, const int32_t* __restrict__ symtab,
     int S, const int64_t* __restrict__ state_in, uint8_t* __restrict__ out_t,
-    int64_t* __restrict__ state_out, uint16_t* __restrict__ scratch, int lpw,
-    int lpb, int lt, int s_pad, int m_pad) {
+    int64_t* __restrict__ state_out, const int32_t* __restrict__ rbase,
+    const int32_t* __restrict__ rsrc, const int32_t* __restrict__ roff,
+    int2* __restrict__ rec, int rmax, uint16_t* __restrict__ scratch,
+    int lpw, int lpb, int lt, int s_pad, int m_pad) {
   extern __shared__ uint4 smem_raw[];
   char* sp = reinterpret_cast<char*>(smem_raw);
   int2* mtab_s = reinterpret_cast<int2*>(sp);
@@ -244,7 +257,7 @@ __global__ void decode_lanes_kernel(
   const int w = w0 + ll;
   BitReader br;
   uint32_t l = 0, u = 0, t = 0;
-  bool bad = false, rescale = false;
+  bool bad = false;
   if (active) {
     br.words = payload;
     br.base = pay_off[w];
@@ -261,6 +274,7 @@ __global__ void decode_lanes_kernel(
   uint16_t* my_muse = muse + static_cast<size_t>(ll) * m_pad;
   const uint16_t* my_tile = tile + static_cast<size_t>(ll) * lt;
   uint8_t* my_symt = symt + static_cast<size_t>(ll) * lt;
+  int2* my_rec = kRescale ? rec + static_cast<int64_t>(w) * rmax : nullptr;
 
   for (int c = 0; c < cols_run; ++c) {
     // -- stage the column and reset the lanes' uses ------------------------
@@ -291,6 +305,14 @@ __global__ void decode_lanes_kernel(
     const int2* mt = kLayout == 0 ? mtab_s : mtab + moff;
     const int32_t* ini = kLayout == 0 ? init_s : irow;
     const int32_t* ptb = kLayout == 0 ? ptab_s : prow;
+    const int32_t* rb_col = kRescale ? rbase + moff : nullptr;
+    if (kRescale) {  // the lanes' records of the column's models at risk
+      qvz_rescale::fill_records(
+          rec + static_cast<int64_t>(w0) * rmax, rmax, nl,
+          roff[c + 1] - roff[c], rsrc + roff[c], mt, ini, nullptr, tid,
+          nthreads);
+      __syncthreads();
+    }
 
     const uint8_t* drow = draws_t + static_cast<int64_t>(c) * n;
     const uint8_t* prev_row =
@@ -318,12 +340,15 @@ __global__ void decode_lanes_kernel(
       const int steps = active ? min(lt, my_len - j0) : 0;
       uint32_t ml_next = steps > 0 ? my_tile[0] : 0;
       int2 mi_next = steps > 0 ? mt[ml_next] : make_int2(0, 0);
+      int rb_next = kRescale && steps > 0 ? __ldg(rb_col + ml_next) : -1;
       for (int jj = 0; jj < steps; ++jj) {
         const uint32_t ml = ml_next;
         const int2 mi = mi_next;
+        const int rb = rb_next;
         if (jj + 1 < steps) {
           ml_next = my_tile[jj + 1];
           mi_next = mt[ml_next];
+          if (kRescale) rb_next = __ldg(rb_col + ml_next);
         }
         const int sb = mi.x;
         const uint32_t card = static_cast<uint32_t>(mi.y) >> 20;
@@ -331,15 +356,22 @@ __global__ void decode_lanes_kernel(
         int x = 0;
         if (card > 1) {
           uint16_t* oc = my_occ + sb;
+          // a model at risk reads the lane's record, else the column's
+          // initial tables
+          const bool risk = kRescale && rb >= 0;
+          int2* rm = risk ? my_rec + rb : nullptr;
           const int32_t* ic = ini + sb;
           uint16_t& mu = my_muse[ml];
           const uint32_t total =
-              (static_cast<uint32_t>(mi.y) & 0xFFFFFu) + kStep * mu;
+              (risk ? static_cast<uint32_t>(rm[0].x)
+                    : static_cast<uint32_t>(mi.y) & 0xFFFFFu) +
+              kStep * mu;
           const uint64_t range = static_cast<uint64_t>(u) - l + 1u;
           const int64_t target =
               (static_cast<int64_t>(t) - static_cast<int64_t>(l) + 1) *
               static_cast<int64_t>(total);
-          uint32_t cx = static_cast<uint32_t>(ic[0]) + kStep * oc[0];
+          uint32_t cx =
+              static_cast<uint32_t>(risk ? rm[1].y : ic[0]) + kStep * oc[0];
           uint32_t cum = cx;
           while (static_cast<int64_t>(cum * range) < target) {
             if (++x == static_cast<int>(card)) {  // the tag left [l, u]
@@ -347,13 +379,17 @@ __global__ void decode_lanes_kernel(
               bad = true;
               break;
             }
-            cx = static_cast<uint32_t>(ic[x]) + kStep * oc[x];
+            cx = static_cast<uint32_t>(risk ? rm[1 + x].y : ic[x]) +
+                 kStep * oc[x];
             cum += cx;
           }
           const uint32_t cum_lo = cum - cx;
-          rescale |= total + kStep > kArithR;
           oc[x] += 1;
           mu += 1;
+          if (risk && total + kStep > kArithR) {
+            qvz_rescale::rescale_record(rm, oc, card);
+            mu = 0;
+          }
           const double r = __drcp_rn(static_cast<double>(total));
           u = l + exact_div(range * cum, total, r) - 1u;
           l = l + exact_div(range * cum_lo, total, r);
@@ -406,7 +442,6 @@ __global__ void decode_lanes_kernel(
     state_out[w * 5 + 2] = t;
     state_out[w * 5 + 3] = bits;
     state_out[w * 5 + 4] = (bad ? kFlagBad : 0) |
-                           (rescale ? kFlagRescale : 0) |
                            (overrun ? kFlagOverrun : 0);
   }
 }
@@ -443,16 +478,15 @@ __global__ void text_rows_kernel(const uint8_t* __restrict__ out_t, int64_t n,
 
 }  // namespace
 
-template <int kLayout, typename... Args>
+template <int kLayout, bool kRescale, typename... Args>
 cudaError_t launch_decode(int blocks, int threads, int64_t smem_bytes,
                           cudaStream_t stream, Args... args) {
+  const auto kernel = decode_lanes_kernel<kLayout, kRescale>;
   const cudaError_t e = cudaFuncSetAttribute(
-      decode_lanes_kernel<kLayout>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes));
   if (e != cudaSuccess) return e;
-  decode_lanes_kernel<kLayout><<<blocks, threads, smem_bytes, stream>>>(
-      args...);
+  kernel<<<blocks, threads, smem_bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -480,7 +514,11 @@ extern "C" int qvz_decoder_smem_limit() {
 // lpb lanes in each block (<= 32), lt steps a chunk, in `layout` 0, 1 or 2
 // (decode_lanes_kernel); smem_bytes is the dynamic shared memory of that
 // shape; scratch: for layout 2, ceil(lanes / lpb) x lpb x (s_pad + m_pad)
-// u16 of device memory, else unused.
+// u16 of device memory, else unused. rescale: the plan has models at risk;
+// then rbase ((n_models,) int32, aligned with mtab), rsrc, roff ((cols +
+// 1,) int32) and rec (lanes x rmax int2 of device memory, rmax the most
+// record entries of a column) are as decode_lanes_kernel reads them, else
+// unused.
 extern "C" int qvz_decode_lanes(
     const uint64_t* payload, const int64_t* pay_off, const int64_t* pay_len,
     const uint8_t* draws_t, int64_t n, const uint8_t* cl,
@@ -490,12 +528,15 @@ extern "C" int qvz_decode_lanes(
     const int32_t* init_counts, const int32_t* col_slots,
     const int32_t* symtab, int S, const int64_t* state_in, uint8_t* out_t,
     uint8_t* out, int64_t row_stride, int sym_add, int64_t* state_out,
-    int layout, uint16_t* scratch, int lpw, int lpb, int lt, int s_pad,
-    int m_pad, int64_t smem_bytes, int64_t line_lo, int64_t line_hi,
-    void* stream) {
+    int layout, int rescale, const int32_t* rbase, const int32_t* rsrc,
+    const int32_t* roff, int2* rec, int rmax, uint16_t* scratch, int lpw,
+    int lpb, int lt, int s_pad, int m_pad, int64_t smem_bytes,
+    int64_t line_lo, int64_t line_hi, void* stream) {
   if (lanes <= 0) return 0;
   if (lpw < 1 || lpw > 32 || lpb < 1 || lpb > kMaxLanesPerBlock ||
-      layout < 0 || layout > 2 || (layout == 2 && scratch == nullptr))
+      layout < 0 || layout > 2 || (layout == 2 && scratch == nullptr) ||
+      (rescale && (rbase == nullptr || rsrc == nullptr || roff == nullptr ||
+                   rec == nullptr || rmax < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int warps = (lpb + lpw - 1) / lpw;
@@ -503,15 +544,18 @@ extern "C" int qvz_decode_lanes(
 #define QVZ_DECODE_ARGS                                                      \
   payload, pay_off, pay_len, draws_t, n, cl, lane_off, lanes, cols_run,      \
       ptab, ptab_w, qrtab, mloc, mtab, col_model_off, init_counts,           \
-      col_slots, symtab, S, state_in, out_t, state_out, scratch, lpw, lpb,   \
-      lt, s_pad, m_pad
+      col_slots, symtab, S, state_in, out_t, state_out, rbase, rsrc, roff,   \
+      rec, rmax, scratch, lpw, lpb, lt, s_pad, m_pad
+#define QVZ_DECODE(L, R) \
+  launch_decode<L, R>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS)
   cudaError_t e;
   if (layout == 0)
-    e = launch_decode<0>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS);
+    e = rescale ? QVZ_DECODE(0, true) : QVZ_DECODE(0, false);
   else if (layout == 1)
-    e = launch_decode<1>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS);
+    e = rescale ? QVZ_DECODE(1, true) : QVZ_DECODE(1, false);
   else
-    e = launch_decode<2>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS);
+    e = rescale ? QVZ_DECODE(2, true) : QVZ_DECODE(2, false);
+#undef QVZ_DECODE
 #undef QVZ_DECODE_ARGS
   if (e != cudaSuccess) return static_cast<int>(e);
   if (cols_run > 0 && line_hi > line_lo) {

@@ -20,6 +20,15 @@ turn over chunks of columns (``chunk_columns``):
 ``encode_lanes_reference`` is their composition. The encoder knows every
 symbol before it codes, so a triple never depends on the interval.
 
+Every model updates after each step as the host's ModelBank::update
+(reference src/qv_stream.c:9-25): the step codes with the current counts,
+then c[x] += 8, and where the total passes 2^19 every count becomes
+(c >> 1) + 1. K2a marks the models that can rescale inside a lane ("at
+risk", ``risk_tables``) and gives each lane a record of their counts in
+device memory (csrc/rescale.cuh); a chunk with none runs without records.
+So every lane codes every step on the device, and no lane is sent to the
+host.
+
 That module imports JAX when it loads, so the numpy parts the port needs
 are copied here: the per-column slot layout of ``LanePlan`` and
 ``finish_payload``.
@@ -33,9 +42,10 @@ Raw lane output, shared by K2 and its plain version:
   words   (W, max_words) int32  the lane's packed 32-bit words (u32 bits)
   n_words (W,) int32            how many of them are valid
   carry   (6, W) int64          l, u, scale3, pending bits, pending bit
-                                count, flag
-A flagged lane (a model would rescale, or an emission would pass 63 bits)
-must be re-coded on the host; ``encode_lanes_raw`` returns None for it.
+                                count, overrun
+Overrun is K2b's mark of a lane whose words would pass max_words, which
+``code_lanes``'s sizing rules out: ``payloads_from_raw`` raises on it.
+No lane is flagged otherwise; a pending run of any length is emitted.
 """
 
 from __future__ import annotations
@@ -144,11 +154,15 @@ class LanePlan:
 
         # per-column model records, each column's models from
         # col_model_off[c], mloc a model's index among them: slot base and
-        # card << 20 | initial total. A total is clamped below 2^20; any
-        # total that high flags its lane at the model's first live step.
+        # card << 20 | initial total. A bank's totals are at most 2^19 (the
+        # coder rescales past it), so they fit the 20-bit field and the
+        # triples' fields.
+        if totals_init.size and int(totals_init.max()) > ARITH_R:
+            raise ValueError(f"a model total of {int(totals_init.max())} "
+                             f"passes {ARITH_R}: not a bank the coder makes")
         mloc = np.zeros(n_models, dtype=np.int32)
         recs = []
-        tot = np.minimum(totals_init.astype(np.int64), _TOTAL_MASK)
+        tot = totals_init.astype(np.int64)
         for ms in col_models:
             mloc[ms] = np.arange(len(ms))
             recs.append(np.stack([slot_base[ms].astype(np.int64),
@@ -184,6 +198,9 @@ def plan_to_torch(plan: LanePlan, device) -> dict:
         "S": int(plan.S),
         "columns": int(plan.columns),
         "models_max": int(np.diff(plan.col_model_off).max(initial=0)),
+        # the model records on the host, for risk_tables
+        "mtab_h": plan.mtab,
+        "col_model_off_h": plan.col_model_off,
         "slot_base": t(plan.slot_base),
         "cards": t(plan.cards),
         "init_counts": t(plan.init_counts_cols),
@@ -217,11 +234,12 @@ def _put(acc, nacc, val, p):
     return acc, nacc, word, flushed
 
 
-def _coder_step(l, u, s3, acc, nacc, flag, clo, chi, n):
+def _coder_step(l, u, s3, acc, nacc, clo, chi, n):
     """One arithmetic-coder step across all lanes, in int64: the maths of
     ``qvz_tpu.ops.coder_device._coder_step`` (the host Encoder::step with
-    batched E1*/E3* renormalisation). Returns the new state and the two
-    (word, flushed) pairs of the step's bit packing."""
+    batched E1*/E3* renormalisation), with a pending run of any length
+    emitted as the host's bit writer emits it. Returns the new state and
+    the (word, flushed) pairs of the step's bit packing."""
     rng = u - l + 1
     u = l + rng * chi // n - 1
     l = l + rng * clo // n
@@ -234,13 +252,25 @@ def _coder_step(l, u, s3, acc, nacc, flag, clo, chi, n):
     k1m1 = (k1 - 1).clamp(min=0)
     top = l >> (ARITH_M - k1)
     first = top >> k1m1
-    flag = flag | (e1 & (k1 + s3 > 63))
-    s3c = torch.minimum(s3, 63 - k1)
-    nbits = torch.where(e1, k1 + s3c, 0)
-    comp = torch.where(first == 0, ((1 << s3c) - 1) << k1m1, 0)
-    v = (first << (nbits - 1).clamp(min=0)) | comp \
-        | (top & ((1 << k1m1) - 1))
-    v = torch.where(e1, v, 0)
+    low = top & ((1 << k1m1) - 1)
+    nbits = torch.where(e1, k1 + s3, 0)
+    if bool((nbits > 63).any()):
+        # a pending run past 62 bits, rare: the first bit, the run in
+        # pieces of 32, the low bits
+        runs = torch.where(e1, s3, 0)
+        puts = [(first, e1.long())]
+        for k in range(-(-int(runs.max()) // 32)):
+            p = (runs - 32 * k).clamp(0, 32)
+            puts.append((torch.where(first == 0, (1 << p) - 1, 0), p))
+        puts.append((low, torch.where(e1, k1m1, 0)))
+    else:
+        comp = torch.where(first == 0,
+                           ((1 << s3.clamp(max=62)) - 1) << k1m1, 0)
+        v = torch.where(e1, (first << (nbits - 1).clamp(min=0)) | comp | low,
+                        0)
+        # bits >= 32 of the emission first, then the low 32
+        puts = [(v >> 32, (nbits - 32).clamp(min=0)),
+                (v & U32, nbits.clamp(max=32))]
     s3 = torch.where(e1, 0, s3)
     l = (l << k1) & FULL
     u = ((u << k1) | ((1 << k1) - 1)) & FULL
@@ -257,10 +287,11 @@ def _coder_step(l, u, s3, acc, nacc, flag, clo, chi, n):
     u = torch.where(e3, ((u << k3) & MSB_CLEAR) | MSB_BIT | ((1 << k3) - 1),
                     u)
 
-    # Pack: bits >= 32 of the emission first, then the low 32.
-    acc, nacc, w0, f0 = _put(acc, nacc, v >> 32, (nbits - 32).clamp(min=0))
-    acc, nacc, w1, f1 = _put(acc, nacc, v & U32, nbits.clamp(max=32))
-    return (l, u, s3, acc, nacc, flag), (w0, f0, w1, f1)
+    out = []
+    for val, p in puts:
+        acc, nacc, w, f = _put(acc, nacc, val, p)
+        out.append((w, f))
+    return (l, u, s3, acc, nacc), out
 
 
 def pack_triples(cum_lo, cum_hi, total):
@@ -279,11 +310,12 @@ def segment_triples(cluster_triples: np.ndarray, lane_counts,
     return torch.from_numpy(np.ascontiguousarray(t.T)).to(device)
 
 
-def chunk_columns(cols: int, lanes: int, lmax: int) -> int:
-    """Columns a chunk of K2a's triples holds within TRIPLE_BYTES (and
-    K2a's grid: at most 65,535)."""
-    return max(1, min(cols, 65535,
-                      TRIPLE_BYTES // max(1, 8 * lanes * lmax)))
+def chunk_columns(cols: int, lanes: int, lmax: int, rec_max: int = 0) -> int:
+    """Columns a chunk of K2a's triples holds within TRIPLE_BYTES, with
+    its lanes' records (rec_max entries of 8 bytes a lane and column, the
+    most of ``risk_tables``), and K2a's grid: at most 65,535."""
+    return max(1, min(cols, 65535, TRIPLE_BYTES
+                      // max(1, 8 * lanes * (lmax + rec_max))))
 
 
 def start_raw(W: int, device, max_words: int = 0):
@@ -295,14 +327,58 @@ def start_raw(W: int, device, max_words: int = 0):
             torch.zeros(W, dtype=torch.int32, device=device), carry)
 
 
+def risk_tables(plan_t: dict, lmax: int) -> dict:
+    """The models at risk of a plan for lanes of at most lmax lines: those
+    (with more than one symbol) whose initial total + 8 x lmax passes
+    2^19, the only ones that can rescale inside a lane (csrc/rescale.cuh).
+    Each has a record of card + 1 entries (its total, then each slot's
+    prefix and count) in a lane's records of its column:
+      rbase  (models,) int32, aligned with mtab: the model's record
+             offset in its column's records, -1 where not at risk
+      rsrc   int32, each column's record sources from roff[c]: -1 - the
+             column-local model for a record's head, else the slot
+      roff   (cols + 1,) int32 and roff_h, the same on the host
+      models the number of models at risk; rec_max the most entries of a
+             column.
+    Cached in plan_t for each lmax."""
+    cache = plan_t.setdefault("risk", {})
+    if lmax in cache:
+        return cache[lmax]
+    mt = np.asarray(plan_t["mtab_h"], dtype=np.int64).reshape(-1, 2)
+    cmo = np.asarray(plan_t["col_model_off_h"], dtype=np.int64)
+    card = mt[:, 1] >> _TOTAL_BITS
+    risk = (card > 1) & ((mt[:, 1] & _TOTAL_MASK) + STEP * lmax > ARITH_R)
+    size = np.where(risk, card + 1, 0)
+    col = np.repeat(np.arange(len(cmo) - 1), np.diff(cmo))
+    before = np.cumsum(size) - size             # entries before each model
+    roff = np.append(before[cmo[:-1]] if len(mt) else
+                     np.zeros(len(cmo) - 1, np.int64), size.sum())
+    g = np.flatnonzero(risk)
+    ne = size[g]
+    pos = np.arange(int(ne.sum())) - np.repeat(np.cumsum(ne) - ne, ne)
+    gi = np.repeat(g, ne)
+    rsrc = np.where(pos == 0, -1 - (gi - cmo[col[gi]]), mt[gi, 0] + pos - 1)
+    dev = plan_t["mtab"].device
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+
+    cache[lmax] = out = {
+        "rbase": t(np.where(risk, before - roff[col], -1)),
+        "rsrc": t(rsrc), "roff": t(roff), "roff_h": roff,
+        "models": int(risk.sum()),
+        "rec_max": int(np.diff(roff).max(initial=0))}
+    return out
+
+
 def triples_reference(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
                       lane_counts, base: int, c0: int, c1: int):
     """Plain PyTorch version of K2a over columns c0 .. c1 - 1: every
-    (column, lane) in parallel, the steps in a loop. Returns the triples,
-    (ncols * L, W) int64 with row cc * L + j for line j of column c0 + cc
-    (L the longest lane; 0 where a step codes nothing), and (W,) bool, the
-    lanes that would rescale. Once a lane would rescale in a column, it
-    codes nothing more there, as in K2a."""
+    (column, lane) in parallel, the steps in a loop, each with its counts
+    and model totals as the host coder keeps them (ModelBank::update: +8,
+    and the exact rescale past 2^19). Returns the triples, (ncols * L, W)
+    int64 with row cc * L + j for line j of column c0 + cc (L the longest
+    lane; 0 where a step codes nothing)."""
     dev = mid.device
     W = len(lane_counts)
     L = int(max(lane_counts)) if W else 0
@@ -317,43 +393,47 @@ def triples_reference(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
     idx = torch.where(valid, offs[:-1, None] + j[None, :], 0)
     m = torch.where(valid, mid[c0:c1][:, idx].long(), 0).reshape(R, L)
     x = torch.where(valid, qs[c0:c1][:, idx].long(), 0).reshape(R, L)
-    col = torch.arange(nc, device=dev).repeat_interleave(W)       # (R,)
+    cmo = plan_t["col_model_off"].long()
     mloc = plan_t["mloc"].long()[m]
     mtab = plan_t["mtab"].long()
-    rec = mtab[(plan_t["col_model_off"].long()[c0 + col][:, None] + mloc)
+    rec = mtab[(cmo[c0:c1].repeat_interleave(W)[:, None] + mloc)
                .clamp(max=max(len(mtab) - 1, 0))]                 # (R, L, 2)
     sb = rec[..., 0]
     card = rec[..., 1] >> _TOTAL_BITS
-    tot0 = rec[..., 1] & _TOTAL_MASK
     live = (m > 0) & (card > 1)
-    init = plan_t["init_counts"].long()[c0:c1].reshape(-1)
-    ipre = plan_t["init_prefix"].long()[c0:c1].reshape(-1)
-    row0 = col * S                             # a row's column in init/ipre
 
-    occ = torch.zeros((R, S), dtype=torch.int32, device=dev)
-    muse = torch.zeros((R, max(plan_t["models_max"], 1)), dtype=torch.int32,
-                       device=dev)
-    flagged = torch.zeros(R, dtype=torch.bool, device=dev)
+    # each row's counts and model totals, from its column's initial ones
+    cnt = plan_t["init_counts"][c0:c1].repeat_interleave(W, 0)    # (R, S)
+    mm = max(plan_t["models_max"], 1)
+    ml_ar = torch.arange(mm, device=dev)
+    g0 = (cmo[c0:c1, None] + ml_ar).clamp(max=max(len(mtab) - 1, 0))
+    tot = torch.where(ml_ar < (cmo[c0 + 1:c1 + 1] - cmo[c0:c1])[:, None],
+                      mtab[g0, 1] & _TOTAL_MASK, 0)
+    tot = tot.int().repeat_interleave(W, 0)                        # (R, mm)
     ar = torch.arange(A, device=dev)
     ar_r = torch.arange(R, device=dev)
     out = torch.zeros((L, R), dtype=torch.long, device=dev)
     for t in range(L):
-        mlt, sbt, xt = mloc[:, t], sb[:, t], x[:, t]
-        lv = live[:, t] & ~flagged
-        total = tot0[:, t] + STEP * muse[ar_r, mlt].long()
-        resc = lv & (total + STEP > ARITH_R)
-        flagged |= resc
-        lv &= ~resc
-        g = occ.gather(1, (sbt[:, None] + ar).clamp(max=S - 1)).long()
-        below = (g * (ar < xt[:, None])).sum(1)
-        s = (sbt + xt).clamp(max=S - 1)
-        cum_lo = ipre[row0 + s] + STEP * below
-        cum_hi = cum_lo + init[row0 + s] + STEP * occ[ar_r, s].long()
-        occ[ar_r, s] += lv.int()
-        muse[ar_r, mlt] += lv.int()
+        mlt, sbt, xt, lv = mloc[:, t], sb[:, t], x[:, t], live[:, t]
+        slots = (sbt[:, None] + ar).clamp(max=S - 1)
+        g = cnt.gather(1, slots)
+        cum_lo = (g * (ar < xt[:, None])).sum(1)
+        cum_hi = cum_lo + g.gather(1, xt[:, None].clamp(max=A - 1))[:, 0]
+        total = tot[ar_r, mlt].long()
         out[t] = torch.where(lv, pack_triples(cum_lo, cum_hi, total), 0)
-    trip = out.reshape(L, nc, W).permute(1, 0, 2).reshape(nc * L, W)
-    return trip, flagged.reshape(nc, W).any(0)
+        cnt[ar_r, (sbt + xt).clamp(max=S - 1)] += STEP * lv.int()
+        n = total + STEP * lv
+        resc = lv & (n > ARITH_R)
+        if bool(resc.any()):
+            # every count of the model becomes (c >> 1) + 1, the total
+            # their sum
+            rr = resc.nonzero()[:, 0]
+            inm = ar < card[rr, t][:, None]
+            h = torch.where(inm, (cnt[rr[:, None], slots[rr]] >> 1) + 1, 0)
+            cnt[rr[:, None].expand_as(h)[inm], slots[rr][inm]] = h[inm]
+            n[rr] = h.sum(1)
+        tot[ar_r, mlt] = n.int()
+    return out.reshape(L, nc, W).permute(1, 0, 2).reshape(nc * L, W)
 
 
 def chain_reference(trip: torch.Tensor, ncols: int, lane_counts,
@@ -368,7 +448,6 @@ def chain_reference(trip: torch.Tensor, ncols: int, lane_counts,
     L = trip.shape[0] // max(ncols, 1)
     words_in, n_in, carry = start_raw(W, dev) if raw is None else raw
     l, u, s3, acc, nacc = (carry[k].clone() for k in range(5))
-    flag = carry[5] != 0
     lens = torch.as_tensor(np.asarray(lane_counts, dtype=np.int64),
                            device=dev)
     words, flushes = [], []
@@ -377,15 +456,16 @@ def chain_reference(trip: torch.Tensor, ncols: int, lane_counts,
             t = trip[cc * L + j]
             lv = (j < lens) & ((t >> (2 * FIELD_BITS)) != 0)
             # a step that codes nothing takes the no-op triple (0, 1, 1)
-            (l, u, s3, acc, nacc, flag), (w0, f0, w1, f1) = _coder_step(
-                l, u, s3, acc, nacc, flag,
+            (l, u, s3, acc, nacc), puts = _coder_step(
+                l, u, s3, acc, nacc,
                 torch.where(lv, t & FIELD_MASK, 0),
                 torch.where(lv, (t >> FIELD_BITS) & FIELD_MASK, 1),
                 torch.where(lv, t >> (2 * FIELD_BITS), 1))
-            words.extend((w0, w1))
-            flushes.extend((f0, f1))
+            for w, f in puts:
+                words.append(w)
+                flushes.append(f)
 
-    carry = torch.stack([l, u, s3, acc, nacc, flag.long()])
+    carry = torch.stack([l, u, s3, acc, nacc, carry[5]])
     if not words:
         return words_in, n_in, carry
     wt = torch.stack(words, 1)                                    # (W, 2T)
@@ -418,18 +498,17 @@ def encode_lanes_reference(plan_t: dict, mid: torch.Tensor,
 def _compose(triples_fn, chain_fn, plan_t, mid, qs, lane_counts, base,
              cluster_triples, raw):
     """K2 from its two parts: the segment's chain, then each chunk's
-    triples (their rescale flags into the carry) and chain."""
+    triples and chain."""
     cols = mid.shape[0]
     W = len(lane_counts)
     L = int(max(lane_counts)) if W else 0
     if cluster_triples is not None:
         raw = chain_fn(segment_triples(cluster_triples, lane_counts,
                                        mid.device), 1, lane_counts, raw)
-    k = chunk_columns(cols, W, L)
+    k = chunk_columns(cols, W, L, risk_tables(plan_t, L)["rec_max"])
     for c0 in range(0, cols, k):
         c1 = min(cols, c0 + k)
-        trip, resc = triples_fn(plan_t, mid, qs, lane_counts, base, c0, c1)
-        raw[2][5] |= resc.long()
+        trip = triples_fn(plan_t, mid, qs, lane_counts, base, c0, c1)
         raw = chain_fn(trip, c1 - c0, lane_counts, raw)
     return raw
 
@@ -561,11 +640,12 @@ def triples(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor, lane_counts,
             base: int, c0: int, c1: int,
             lanes_per_warp: int = LANES_PER_WARP,
             layout: int | None = None):
-    """K2a over columns c0 .. c1 - 1: (triples, rescale flags) as
-    ``triples_reference`` returns them. CPU tensors take the plain
-    version; CUDA tensors launch K2a (csrc/coder.cu), lanes_per_warp
-    lanes in each warp, in `layout` (``triples_shape``'s choice where
-    None), or raise."""
+    """K2a over columns c0 .. c1 - 1: the triples as ``triples_reference``
+    returns them. CPU tensors take the plain version; CUDA tensors launch
+    K2a (csrc/coder.cu), lanes_per_warp lanes in each warp, in `layout`
+    (``triples_shape``'s choice where None), with the lanes' records of
+    the chunk's models at risk (``risk_tables``) in device memory where it
+    has any, or raise."""
     _check(plan_t, mid, qs, lane_counts, base, None)
     if not 0 <= c0 < c1 <= mid.shape[0]:
         raise ValueError(f"columns {c0}..{c1} out of range")
@@ -582,19 +662,32 @@ def triples(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor, lane_counts,
     mid, qs = mid.contiguous(), qs.contiguous()
     offs = _lane_offsets(lane_counts, base, dev)
     trip = torch.empty(((c1 - c0) * L, W), dtype=torch.int64, device=dev)
-    resc = torch.zeros(W, dtype=torch.int64, device=dev)
     scratch = _uses_scratch(shape, W, dev)
+    risk = risk_tables(plan_t, L)
+    n_rec = int(risk["roff_h"][c1] - risk["roff_h"][c0])
+    rec = (torch.empty(W * n_rec * 2, dtype=torch.int32, device=dev)
+           if n_rec else None)
     _build.launch(
         "coder_triples", "lane coder triples kernel", dev,
-        lib.qvz_coder_triples, mid.data_ptr(), qs.data_ptr(), mid.shape[1], offs.data_ptr(), W, c0,
-        c1 - c0, L, plan_t["mloc"].data_ptr(), plan_t["mtab"].data_ptr(),
-        plan_t["col_model_off"].data_ptr(), plan_t["init_counts"].data_ptr(),
-        plan_t["init_prefix"].data_ptr(), plan_t["col_slots"].data_ptr(), S,
-        trip.data_ptr(), resc.data_ptr(), shape["layout"],
+        lib.qvz_coder_triples, mid.data_ptr(), qs.data_ptr(), mid.shape[1],
+        offs.data_ptr(), W, c0, c1 - c0, L, plan_t["mloc"].data_ptr(),
+        plan_t["mtab"].data_ptr(), plan_t["col_model_off"].data_ptr(),
+        plan_t["init_counts"].data_ptr(), plan_t["init_prefix"].data_ptr(),
+        plan_t["col_slots"].data_ptr(), S, trip.data_ptr(), shape["layout"],
+        *_risk_args(risk, rec),
         scratch.data_ptr() if scratch is not None else None, shape["lpw"],
         shape["lpb"], shape["lt"], shape["s_pad"], shape["m_pad"],
         shape["smem"])
-    return trip, resc != 0
+    return trip
+
+
+def _risk_args(risk: dict, rec: torch.Tensor | None) -> tuple:
+    """K2a's and K5's arguments for the records of the models at risk:
+    (rescale, rbase, rsrc, roff, rec), all null without records."""
+    if rec is None:
+        return 0, None, None, None, None
+    return (1, risk["rbase"].data_ptr(), risk["rsrc"].data_ptr(),
+            risk["roff"].data_ptr(), rec.data_ptr())
 
 
 def chain(trip: torch.Tensor, ncols: int, lane_counts, raw,
@@ -604,7 +697,7 @@ def chain(trip: torch.Tensor, ncols: int, lane_counts, raw,
     version; CUDA tensors launch K2b (csrc/coder.cu), lanes_per_warp lanes
     in each warp, which writes the words, word counts and carry of `raw`
     in place (its words (W, max_words) int32 hold the room; a lane that
-    runs past it is flagged), or raise."""
+    would run past it is marked overrun in the carry), or raise."""
     dev = trip.device
     W = len(lane_counts)
     words, n_words, carry = raw
@@ -671,16 +764,18 @@ def fetch_lanes(words: torch.Tensor, n_words: torch.Tensor,
 
 
 def payloads_from_raw(words_h, n_words_h, carry_h):
-    """Per-lane payload bytes (None for a flagged lane) and the flags."""
+    """Per-lane payload bytes and the lanes' flags (qvz_tpu's contract;
+    none is set: every lane is coded). A lane marked overrun, whose words
+    passed the room ``code_lanes`` sized for them, raises RuntimeError."""
     flags = carry_h[5] != 0
-    payloads = []
-    for w in range(len(n_words_h)):
-        if flags[w]:
-            payloads.append(None)
-            continue
-        payloads.append(finish_payload(
-            words_h[w, : n_words_h[w]], int(carry_h[0, w]),
-            int(carry_h[2, w]), int(carry_h[3, w]), int(carry_h[4, w])))
+    if flags.any():
+        raise RuntimeError(
+            f"K2b ran past the words of lanes {np.flatnonzero(flags)[:8]}: "
+            f"more than {BITS_PER_STEP_BOUND} bits a step")
+    payloads = [finish_payload(
+        words_h[w, : n_words_h[w]], int(carry_h[0, w]), int(carry_h[2, w]),
+        int(carry_h[3, w]), int(carry_h[4, w]))
+        for w in range(len(n_words_h))]
     return payloads, flags
 
 
@@ -704,9 +799,9 @@ def encode_lanes_raw(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
     the contract of ``qvz_tpu.ops.coder_device.encode_lanes_raw``. Lane w
     covers lines base + sum(lane_counts[:w]) onwards; cluster_triples
     (W, max lane count, 3) uint32 are its cluster-id steps, None with one
-    cluster. payloads[w] is None where flags[w] is set and the caller
-    must re-code that lane on the host. ``code_lanes`` then
-    ``finish_lanes``."""
+    cluster. Every lane is coded, so no flag is set (``qvz_tpu`` flags a
+    lane whose model would rescale and leaves it to the host).
+    ``code_lanes`` then ``finish_lanes``."""
     payloads, flags, _ = finish_lanes(
         code_lanes(plan_t, mid, qs, lane_counts, base, cluster_triples))
     return payloads, flags

@@ -12,16 +12,21 @@ boundary search cum*range < (t - l + 1)*n, the exact interval update and
 the batched E1*/E3* renormalisation that consumes stream bits MSB-first
 from the payload bytes, zero-filled past the end. The model counts are
 reset from the initial bank at each column start and take +8 per live
-(cardinality > 1) step; a card-1 model moves neither the interval nor a
-bit. The last symbol of a shard runs as a normal step: its extra
-renormalisation only changes state that is thrown away.
+(cardinality > 1) step, and a model whose total passes 2^19 rescales as
+the host's ModelBank::update (every count c becomes (c >> 1) + 1): K5
+keeps the counts of the models at risk (``coder_device.risk_tables``) in
+a record of each lane's own in device memory. A card-1 model moves
+neither the interval nor a bit. The last symbol of a shard runs as a
+normal step: its extra renormalisation only changes state that is thrown
+away.
 
 Flags (bits of a lane's flag word), as ``qvz_tpu``'s decoder: 1 bad (the
-tag left [l, u], or a context is unreachable), 2 rescale (a live model's
-total would pass 2^19, where the reference rescales), 4 overrun (the lane
+tag left [l, u], or a context is unreachable), 4 overrun (the lane
 consumed more than 64 bytes past its payload: the host
-``BitReader::overrun`` rule, on consumed bits). A flagged lane must be
-decoded again on the host.
+``BitReader::overrun`` rule, on consumed bits). Only a corrupt stream
+sets them; such a lane is decoded again on the host, whose error or
+output is the outcome. ``qvz_tpu``'s decoder also flags a lane that
+reaches a rescale (2); K5 decodes it.
 
 Lane w decodes lines base + sum(lane_counts[:w]) onwards, for
 lane_counts[w] lines, of the (cols, N) draws and (N,) cluster ids; its
@@ -55,10 +60,11 @@ from qvz_tpu_torch.ops.coder_device import (ARITH_M, ARITH_R, FULL,
                                             LAYOUTS, MSB_BIT, MSB_CLEAR,
                                             MSB_SHIFT, SMSB_SHIFT, STEP, U32,
                                             _bit_length, _lane_offsets,
-                                            _round8, _uses_scratch,
-                                            plan_to_torch)
+                                            _risk_args, _round8,
+                                            _uses_scratch, plan_to_torch,
+                                            risk_tables)
 
-FLAG_BAD, FLAG_RESCALE, FLAG_OVERRUN = 1, 2, 4
+FLAG_BAD, FLAG_OVERRUN = 1, 4
 OVERRUN_BYTES = 64       # the host BitReader's margin past the payload
 A = 72                   # no model has more symbols than the alphabet
 # K5's launch shape: lanes decoded in each warp, and at most 32 lanes a
@@ -103,8 +109,7 @@ class DecodePlan:
         ).astype(np.int32)
         self.qrtab = np.asarray(tables.qratio).astype(np.int32)
         self.symtab = symtab
-        # the lane coder's per-column model records (a total at 2^20 or
-        # more, clamped there, raises the rescale flag at its first use)
+        # the lane coder's per-column model records
         self.mloc = plan.mloc
         self.mtab = plan.mtab
         self.col_model_off = plan.col_model_off
@@ -202,7 +207,6 @@ def decode_lanes_reference(dplan_t: dict, pays: LanePayloads,
     st = states.long()
     l, u, t, B = (st[:, k].clone() for k in range(4))
     bad = torch.zeros(W, dtype=torch.bool, device=dev)
-    resc = torch.zeros_like(bad)
     prev = torch.zeros((W, L), dtype=torch.long, device=dev)
     ar = torch.arange(A, device=dev)
     ar_w = torch.arange(W, device=dev)
@@ -235,8 +239,16 @@ def decode_lanes_reference(dplan_t: dict, pays: LanePayloads,
             x = torch.where(upd, torch.minimum(x, cdi - 1), 0)
             cum_hi = cum.gather(1, x[:, None])[:, 0]
             cum_lo = cum_hi - g.gather(1, x[:, None])[:, 0]
-            resc |= upd & (n + STEP > ARITH_R)
             counts[ar_w, (sbi + x).clamp(max=S - 1)] += STEP * upd
+            resc = upd & (n + STEP > ARITH_R)
+            if bool(resc.any()):
+                # every count of the model becomes (c >> 1) + 1
+                rr = resc.nonzero()[:, 0]
+                slots = (sbi[rr, None] + ar).clamp(max=S - 1)
+                inm = ar < cdi[rr, None]
+                h = (counts[rr[:, None], slots] >> 1) + 1
+                counts[rr[:, None].expand_as(slots)[inm], slots[inm]] = \
+                    h[inm]
             u = torch.where(upd, (l + rng * cum_hi // n - 1) & U32, u)
             l = torch.where(upd, l + rng * cum_lo // n, l)
 
@@ -271,8 +283,7 @@ def decode_lanes_reference(dplan_t: dict, pays: LanePayloads,
     if cols_run and out.shape[1] > cols:
         out[rows, cols] = ord("\n")
     over = B > 8 * (pays.len + OVERRUN_BYTES)
-    flags = (bad.long() * FLAG_BAD) | (resc.long() * FLAG_RESCALE) \
-        | (over.long() * FLAG_OVERRUN)
+    flags = (bad.long() * FLAG_BAD) | (over.long() * FLAG_OVERRUN)
     return torch.stack([l, u, t, B, flags], 1)
 
 
@@ -380,7 +391,9 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
     bits); out: (N, cols or cols + 1) uint8. cols_run stops after that
     many columns. CPU tensors take the plain version; CUDA tensors launch
     K5 (csrc/decoder.cu), lanes_per_warp lanes in each warp, in `layout`
-    (``launch_shape``'s choice where None), or raise."""
+    (``launch_shape``'s choice where None), with each lane's records of
+    the plan's models at risk (``coder_device.risk_tables``) in device
+    memory where it has any, or raise."""
     _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
            cols_run)
     dev = draws_t.device
@@ -405,9 +418,14 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
     if flat.data_ptr() % 8 or flat.numel() < padded:
         flat = torch.zeros(padded, dtype=torch.uint8, device=dev)
         flat[: pays.flat.numel()] = pays.flat
-    shape = _card_shape(lib, dplan_t, int(max(lane_counts, default=0)),
-                        lanes_per_warp, layout)
+    lmax = int(max(lane_counts, default=0))
+    shape = _card_shape(lib, dplan_t, lmax, lanes_per_warp, layout)
     scratch = _uses_scratch(shape, W, dev)
+    # each lane's records of a column's models at risk, refilled a column
+    risk = risk_tables(dplan_t, lmax)
+    rmax = int(np.diff(risk["roff_h"][: cols_run + 1]).max(initial=0))
+    rec = (torch.empty(W * rmax * 2, dtype=torch.int32, device=dev)
+           if rmax else None)
     offs = _lane_offsets(lane_counts, base, dev)
     out_t = torch.empty((max(cols_run, 1), n), dtype=torch.uint8,
                         device=dev)
@@ -425,7 +443,8 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
         dplan_t["init_counts"].data_ptr(), dplan_t["col_slots"].data_ptr(),
         dplan_t["symtab"].data_ptr(), S, states.data_ptr(), out_t.data_ptr(),
         out.data_ptr(), out.shape[1], sym_add, state_out.data_ptr(),
-        shape["layout"], scratch.data_ptr() if scratch is not None else None,
+        shape["layout"], *_risk_args(risk, rec), rmax,
+        scratch.data_ptr() if scratch is not None else None,
         shape["lpw"], shape["lpb"], shape["lt"], shape["s_pad"],
         shape["m_pad"], shape["smem"], base, hi)
     return state_out

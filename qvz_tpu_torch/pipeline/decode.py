@@ -14,7 +14,8 @@ in seconds, in ``stats["phase_seconds"]`` when the caller passes a dict:
             the decode plan's tables, built once from the warmup bank
   decoder   K5 on the device, fenced
   d2h       the lanes' text rows and final states to the host
-  redecode  flagged lanes decoded again on the host
+  redecode  the lanes K5 flagged as corrupt (bad or overrun) decoded
+            again on the host, so that its error or output is the outcome
 
 The lanes decode in waves (``_waves``): runs of shards whose draws and
 text fit WAVE_BYTES, one K5 call a wave, so host and device memory stay
@@ -23,7 +24,8 @@ writes each wave's text rows, symbols + 33 and the newline, straight into
 a device buffer, so the rows need no assembly on the host. ``stats`` also
 gets ``lanes``, ``waves`` and ``fallback_lanes``: the lanes K5 flagged,
 decoded again on the host. K5 takes every plan (``launch_shape``'s
-layouts), so no lane goes to the host before a launch.
+layouts) and decodes every rescale, so only a corrupt lane goes to the
+host.
 
 v1 containers, row-major QVZ2 and single-shard QVZ2 have no lanes: they
 go to the port's host decoder (``pipeline/host.py``), as ``qvz_tpu``
@@ -253,7 +255,7 @@ def _decode_lanes(compressed, head, tables, out, dev, st) -> None:
     offs = np.concatenate([[0], np.cumsum([s.lines for s in shards])]
                           ).astype(np.int64)
     waves = _waves(head)
-    host_shards = []                     # the flagged lanes' shards
+    host_shards = []                     # the corrupt lanes' shards
     dplan_t = None                       # the same for every wave
     warm = _Warmup(compressed, head, tables, out)
     try:

@@ -17,8 +17,8 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
                device (ops/coder_device.py), the warmup shard coded by a
                host thread meanwhile, and the payload d2h
   d2h          the device-to-host copies of payload words and recon
-  code         everything after quantize: lane coding, host re-coding of
-               flagged lanes, distortion and container assembly
+  code         everything after quantize: lane coding, distortion and
+               container assembly
 
 Device phases end in a synchronise, so each time covers its device work.
 Every encode runs its device phases on blocks of reads
@@ -272,21 +272,9 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
     t1 = time.perf_counter()
     ph["device_code"] = dv["device_code"] = t1 - t0
     ph["d2h"] = dv["d2h"] = d2h
+    # qvz_tpu's field: K2 codes every lane, so none goes to the host
+    # (finish_lanes raises where one could not be coded)
     st.coder_fallback_lanes = int(flags.sum())
-
-    for b, (mid, qs, _), (w0, w1, _) in zip(blocks, quant, lanes):
-        for w in np.flatnonzero(flags[w0:w1]) + w0:
-            lo, hi = int(offs[first + w]), int(offs[first + w + 1])
-            lane_pays[w] = rt.encode_precomputed_colmajor(
-                tables,
-                np.ascontiguousarray(
-                    mid[:, lo - b.lo:hi - b.lo].cpu().numpy(),
-                    dtype=np.uint32),
-                np.ascontiguousarray(
-                    qs[:, lo - b.lo:hi - b.lo].cpu().numpy(),
-                    dtype=np.uint8),
-                clusters[lo:hi] if clusters is not None else None,
-                hi - lo, init_bank=bank)
 
     t2 = time.perf_counter()
     if want_recon:

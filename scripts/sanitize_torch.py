@@ -27,15 +27,20 @@ its code paths, and holds each output equal to its plain version, run on
 the CPU:
 
   K1  quantize_kernel: -c 1 and -c 3;
-  K2a triples_kernel: layouts 0, 1 and 2, each forced;
-  K2b chain_kernel: the column chain, with the cluster-id segment at -c 3;
+  K2a triples_kernel: layouts 0, 1 and 2, each forced, without records and
+      with the records of models that rescale (chip_smoke.rescale_case at
+      8 lanes of 600 reads);
+  K2b chain_kernel: the column chain, with the cluster-id segment at -c 3,
+      through rescales, and at pending runs of 31 to 100 bits
+      (chip_smoke.pending_runs);
   K3  hist_kernel: mode 0 (counters in shared memory, C <= 11) at C = 1
       and 3, mode 1 (in device memory) at C = 40;
   K4  kmeans_kernel: sums in registers (K = 3), in shared memory (K = 150)
       and in device memory (K = 255 at 1,022 columns), each block walking
       three or more tiles so that the cp.async double buffer turns over;
   K5  decode_lanes_kernel and text_rows_kernel: layouts 0, 1 and 2,
-      primed and unprimed containers;
+      primed and unprimed containers, and with the records of models that
+      rescale;
   the microbenchmark's issue (addxor, cmpsel), mix (3-D and 2-D) and
   selmix (sel, sel_b4, sweeponly);
   the encode and decode on the card at -c 1 primed and -c 3 unprimed,
@@ -387,6 +392,21 @@ def _stats_quantize_code(torch, dev, paths: list) -> None:
     paths.append("K3 mode 1 C=40")
 
 
+def _rescale(torch, dev, paths: list) -> None:
+    """K2a and K5 in layouts 0-2 with the records of models that rescale,
+    K2b through the rescales and at long pending runs
+    (chip_smoke.rescale_case at a small size)."""
+    from chip_smoke import rescale_case
+    from qvz_tpu_torch.constants import DISTORTION_MSE
+    from qvz_tpu_torch.ops.distortion import make_matrix
+
+    rescale_case(torch, np, make_matrix(DISTORTION_MSE), dev, lanes=8,
+                 lines=600, rescales=1, tag="rescale:")
+    paths.extend([f"K2a layout {lay} with records" for lay in (0, 1, 2)]
+                 + ["K2b through rescales", "K2b pending runs of 31-100 bits"]
+                 + [f"K5 layout {lay} with records" for lay in (0, 1, 2)])
+
+
 def _kmeans(torch, dev, paths: list) -> None:
     """K4 in its three sums modes, each block walking three or more
     tiles (the planner's grid cut down to a third of the tiles)."""
@@ -447,6 +467,7 @@ def child(tool: str) -> int:
     _build.LAUNCHES.clear()
     paths: list = []
     _stats_quantize_code(torch, dev, paths)
+    _rescale(torch, dev, paths)
     _kmeans(torch, dev, paths)
     _microbench(torch, dev, paths)
     torch.cuda.synchronize()

@@ -64,6 +64,21 @@ def _assert_same(want, got):
         assert a == b, f"lane {w}"
 
 
+def _assert_host(tables, bank, md, qs, clusters, lane_counts, base, got):
+    """No lane flagged, and every lane's payload equal to the host C++
+    coder's for its shard."""
+    pays, flags = got
+    assert not np.asarray(flags).any()
+    lo = base
+    for w, cnt in enumerate(lane_counts):
+        assert pays[w] == rt.encode_precomputed_colmajor(
+            tables, np.ascontiguousarray(md[:, lo:lo + cnt]),
+            np.ascontiguousarray(qs[:, lo:lo + cnt]),
+            None if clusters is None else clusters[lo:lo + cnt], cnt,
+            init_bank=bank), f"lane {w}"
+        lo += cnt
+
+
 # QVZ_TPU_CODER_PALLAS: "interpret" runs the Pallas kernel (#3) through
 # the interpreter; the default takes the CPU XLA scan.
 CODERS = ["interpret", "xla"]
@@ -98,7 +113,7 @@ def test_encode_lanes_reference_matches_jax(coder, prime):
 def _flagging_bank(tables, md, lane_counts, base):
     """A synthetic init bank whose busiest column-0 model has a total
     just under 2^19, so that the lanes where it occurs often enough
-    would rescale (flagged) and the others code as usual."""
+    rescale (qvz_tpu flags them) and the others do not."""
     cards = np.asarray(tables.model_card, dtype=np.int64)
     offs = np.asarray(tables.model_off, dtype=np.int64)
     col0 = md[0, base:].astype(np.int64)
@@ -117,6 +132,8 @@ def _flagging_bank(tables, md, lane_counts, base):
 
 
 def test_encode_lanes_reference_flags_like_jax(coder):
+    """qvz_tpu flags the lanes that reach a rescale; the port codes them,
+    byte-equal to the host coder, and equals qvz_tpu on the others."""
     n, cols = 1200, 6
     tables, md, qs = _streams(n, cols, seed=21)
     lane_counts = _lanes(n, 0, 100)
@@ -124,8 +141,10 @@ def test_encode_lanes_reference_flags_like_jax(coder):
     assert expect.any() and not expect.all()
     want = _jax(tables, bank, md, qs, lane_counts, 0)
     got = _port(tables, bank, md, qs, lane_counts, 0)
-    assert np.array_equal(got[1], expect)
-    _assert_same(want, got)
+    assert np.array_equal(np.asarray(want[1], dtype=bool), expect)
+    _assert_host(tables, bank, md, qs, None, lane_counts, 0, got)
+    for w in np.flatnonzero(~expect):
+        assert got[0][w] == want[0][w], f"lane {w}"
 
 
 def test_encode_lanes_reference_matches_host_coder():
@@ -323,15 +342,15 @@ def test_lane_coder_kernel_codes_the_cluster_segment():
 def _replay_triples(tables, bank, md, qs, lane_counts, base, c0, c1):
     """The host coder's counting replayed in numpy, lane by lane and column
     by column from the bank's counts: each step's packed (cum_lo, cum_hi,
-    total), step-major, and the lanes that would rescale (which code
-    nothing more in that column)."""
+    total), step-major, and each lane's count of rescales (every count c
+    becomes (c >> 1) + 1 where the total passes 2^19)."""
     cards = np.asarray(tables.model_card, dtype=np.int64)
     moff = np.asarray(tables.model_off, dtype=np.int64)
     bank0 = (np.ones(int(moff[-1]), dtype=np.int64) if bank is None
              else np.asarray(bank[: int(moff[-1])], dtype=np.int64))
     W, L = len(lane_counts), max(lane_counts)
     out = np.zeros(((c1 - c0) * L, W), dtype=np.int64)
-    flags = np.zeros(W, dtype=bool)
+    flags = np.zeros(W, dtype=np.int64)
     lo = base
     for w, cnt in enumerate(lane_counts):
         for c in range(c0, c1):
@@ -342,13 +361,13 @@ def _replay_triples(tables, bank, md, qs, lane_counts, base, c0, c1):
                     continue
                 seg = counts[moff[m]: moff[m] + cards[m]]
                 total = int(seg.sum())
-                if total + 8 > ARITH_R:
-                    flags[w] = True
-                    break
                 cum_lo = int(seg[:x].sum())
                 cum_hi = cum_lo + int(seg[x])
                 out[(c - c0) * L + j, w] = cum_lo | cum_hi << 20 | total << 40
                 seg[x] += 8
+                if total + 8 > ARITH_R:
+                    flags[w] += 1
+                    seg[:] = (seg >> 1) + 1
         lo += cnt
     return out, flags
 
@@ -364,14 +383,13 @@ def test_triples_reference_matches_numpy_replay(case, c0, c1):
     else:
         bank, _ = _flagging_bank(tables, md, lane_counts, 0)
     plan_t = cd.plan_to_torch(cd.LanePlan(tables, bank), "cpu")
-    trip, flags = cd.triples_reference(
+    trip = cd.triples_reference(
         plan_t, torch.from_numpy(md.astype(np.int32)),
         torch.from_numpy(qs.astype(np.int32)), lane_counts, 0, c0, c1)
-    want, wflags = _replay_triples(tables, bank, md, qs, lane_counts, 0, c0,
-                                   c1)
+    want, rescaled = _replay_triples(tables, bank, md, qs, lane_counts, 0,
+                                     c0, c1)
     assert np.array_equal(trip.numpy(), want)
-    assert np.array_equal(flags.numpy(), wflags)
-    assert wflags.any() == (case == "flagging" and c0 == 0)
+    assert rescaled.any() == (case == "flagging" and c0 == 0)
     assert (want != 0).mean() > 0.5
 
 
@@ -386,10 +404,9 @@ def test_chain_reference_matches_pass2(segment):
         (tables, md, qs), bank = _streams(n, cols, seed=13), None
     lane_counts = _lanes(n, 0, 228)
     plan = cd.LanePlan(tables, bank)
-    trip, resc = cd.triples_reference(
+    trip = cd.triples_reference(
         cd.plan_to_torch(plan, "cpu"), torch.from_numpy(md.astype(np.int32)),
         torch.from_numpy(qs.astype(np.int32)), lane_counts, 0, 0, cols)
-    assert not resc.any()
     ncols = cols
     if segment:
         seg = cd.segment_triples(_triples(plan, clusters, lane_counts, 0),
@@ -459,15 +476,23 @@ def test_column_chunks_match_jax(coder, monkeypatch, chunks, segment):
 
 
 def test_flags_over_column_chunks_like_jax(coder, monkeypatch):
+    """The rescaling lanes over chunks of columns (each chunk's records
+    sized with its triples): qvz_tpu flags them, the port codes them
+    byte-equal to the host coder."""
     n, cols = 1200, 6
     tables, md, qs = _streams(n, cols, seed=21)
     lane_counts = _lanes(n, 0, 100)
     bank, expect = _flagging_bank(tables, md, lane_counts, 0)
-    monkeypatch.setattr(cd, "TRIPLE_BYTES", 8 * len(lane_counts) * 100 * 2)
+    plan_t = cd.plan_to_torch(cd.LanePlan(tables, bank), "cpu")
+    rec = cd.risk_tables(plan_t, 100)["rec_max"]
+    assert rec > 0
+    monkeypatch.setattr(cd, "TRIPLE_BYTES",
+                        8 * len(lane_counts) * (100 + rec) * 2)
+    assert cd.chunk_columns(cols, len(lane_counts), 100, rec) == 2
     want = _jax(tables, bank, md, qs, lane_counts, 0)
     got = _port(tables, bank, md, qs, lane_counts, 0)
-    assert np.array_equal(got[1], expect)
-    _assert_same(want, got)
+    assert np.array_equal(np.asarray(want[1], dtype=bool), expect)
+    _assert_host(tables, bank, md, qs, None, lane_counts, 0, got)
 
 
 @pytest.mark.parametrize("S,models,lmax,lpw,want", [
@@ -527,7 +552,7 @@ def test_triples_kernel_layouts_match_plain(layout):
     q = torch.from_numpy(qs.astype(np.int32)).cuda()
     got = cd.triples(plan_t, m, q, lane_counts, 100, 1, 7, layout=layout)
     want = cd.triples_reference(plan_t, m, q, lane_counts, 100, 1, 7)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -543,9 +568,9 @@ def test_triples_and_chain_kernels_match_plain(monkeypatch):
     plan_t = cd.plan_to_torch(plan, "cuda")
     m = torch.from_numpy(md.astype(np.int32)).cuda()
     q = torch.from_numpy(qs.astype(np.int32)).cuda()
-    trip, fl = cd.triples(plan_t, m, q, lane_counts, 100, 2, 7)
-    want, wfl = cd.triples_reference(plan_t, m, q, lane_counts, 100, 2, 7)
-    assert torch.equal(trip, want) and torch.equal(fl, wfl)
+    trip = cd.triples(plan_t, m, q, lane_counts, 100, 2, 7)
+    want = cd.triples_reference(plan_t, m, q, lane_counts, 100, 2, 7)
+    assert torch.equal(trip, want)
     seg = cd.segment_triples(ct, lane_counts, "cuda")
     raw = cd.chain(seg, 1, lane_counts,
                    cd.start_raw(len(lane_counts), "cuda", 4096))
@@ -555,3 +580,174 @@ def test_triples_and_chain_kernels_match_plain(monkeypatch):
     got = cd.encode_lanes_raw(plan_t, m, q, lane_counts, 100, ct)
     _assert_same(cd.encode_lanes_raw(cd.plan_to_torch(plan, "cpu"), m.cpu(),
                                      q.cpu(), lane_counts, 100, ct), got)
+
+
+# ---------------------------------------------------------------------------
+# The exact rescale: lanes whose models pass 2^19 are coded, not flagged.
+
+
+def _near_limit(tables, bank, md, col, short):
+    """`bank` (None: counts ones, totals the cardinalities) with the
+    busiest live model of column `col` started `short` short of 2^19,
+    its first count raised; returns (bank, model)."""
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    moff = np.asarray(tables.model_off, dtype=np.int64)
+    blob = (np.concatenate([np.ones(int(moff[-1]), dtype=np.uint32),
+                            cards.astype(np.uint32)]) if bank is None
+            else np.array(bank, dtype=np.uint32))
+    ids, freq = np.unique(md[col].astype(np.int64), return_counts=True)
+    live = cards[ids] > 1
+    m = int(ids[live][np.argmax(freq[live])])
+    total = ARITH_R - short
+    blob[moff[m]] += total - blob[int(moff[-1]) + m]
+    blob[int(moff[-1]) + m] = total
+    return blob, m
+
+
+def test_triples_rescale_twice_in_a_lane():
+    """One lane whose every step uses one model, started 16 short of
+    2^19: it rescales at its third use and again about 32,768 uses later.
+    The plain K2a's triples equal the host's counting replayed in numpy."""
+    tables, md, qs = _streams(400, 3, seed=41)
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    bank, m = _near_limit(tables, None, md, 1, 16)
+    L = 33_000
+    rng = np.random.default_rng(41)
+    md1 = np.zeros((3, L), dtype=np.uint32)
+    qs1 = np.zeros((3, L), dtype=np.uint8)
+    md1[1] = m
+    qs1[1] = rng.integers(0, cards[m], L)
+    plan_t = cd.plan_to_torch(cd.LanePlan(tables, bank), "cpu")
+    trip = cd.triples_reference(
+        plan_t, torch.from_numpy(md1.astype(np.int32)),
+        torch.from_numpy(qs1.astype(np.int32)), [L], 0, 1, 2)
+    want, rescales = _replay_triples(tables, bank, md1, qs1, [L], 0, 1, 2)
+    assert rescales[0] == 2
+    assert np.array_equal(trip.numpy(), want)
+    assert cd.risk_tables(plan_t, L)["models"] >= 1
+
+
+def test_risk_tables_mark_the_models_that_can_rescale():
+    """A plan whose models all stay below 2^19 in any lane has no model at
+    risk and no record; one with a model near the limit marks it (and
+    every model whose total + 8 x the longest lane passes 2^19), with a
+    record of its total and each slot's prefix and count."""
+    tables, md, qs = _streams(700, 6, seed=23)
+    none = cd.risk_tables(cd.plan_to_torch(cd.LanePlan(tables, None),
+                                           "cpu"), 150)
+    assert none["models"] == 0 and none["rec_max"] == 0
+    assert (none["rbase"] == -1).all() and none["rsrc"].numel() == 0
+    assert none["roff_h"].tolist() == [0] * 7
+    assert cd.chunk_columns(6, 5, 150, none["rec_max"]) == \
+        cd.chunk_columns(6, 5, 150)
+
+    bank, m = _near_limit(tables, None, md, 2, 800)
+    plan = cd.LanePlan(tables, bank)
+    plan_t = cd.plan_to_torch(plan, "cpu")
+    assert cd.risk_tables(plan_t, 99)["models"] == 0     # 8 x 99 < 800
+    risk = cd.risk_tables(plan_t, 150)
+    assert cd.risk_tables(plan_t, 150) is risk            # cached
+    mt, cmo = plan.mtab, plan.col_model_off
+    card, tot = mt[:, 1] >> 20, mt[:, 1] & ((1 << 20) - 1)
+    want = (card > 1) & (tot + 8 * 150 > ARITH_R)
+    assert risk["models"] == int(want.sum()) >= 1
+    g = int(cmo[2] + plan.mloc[m])
+    assert want[g] and (risk["rbase"].numpy() >= 0).tolist() == want.tolist()
+    roff, rsrc = risk["roff_h"], risk["rsrc"].numpy()
+    assert roff[-1] == len(rsrc) == int((card[want] + 1).sum())
+    for gi in np.flatnonzero(want):
+        c = int(np.searchsorted(cmo, gi, side="right") - 1)
+        at = int(roff[c] + risk["rbase"][gi])
+        assert rsrc[at] == -1 - (gi - cmo[c])
+        assert rsrc[at + 1:at + 1 + card[gi]].tolist() == list(
+            range(mt[gi, 0], mt[gi, 0] + card[gi]))
+    assert risk["rec_max"] == int(np.diff(roff).max())
+    assert cd.chunk_columns(6, 5, 150, risk["rec_max"]) <= \
+        cd.chunk_columns(6, 5, 150)
+    # the plain coder does not need the records: the same lanes code to
+    # the host coder's bytes
+    lane_counts = _lanes(700, 0, 150)
+    _assert_host(tables, bank, md, qs, None, lane_counts, 0,
+                 _port(tables, bank, md, qs, lane_counts, 0))
+
+
+@pytest.mark.parametrize("prime", [True, False], ids=["prime", "noprime"])
+def test_cluster_segment_rescale_ragged(prime):
+    """-c 3 with the cluster-id segment, ragged lanes, a bank (primed or
+    not) whose busiest models of columns 0 and 3 start just short of
+    2^19: qvz_tpu flags the lanes that reach them, the port codes every
+    lane byte-equal to the host coder."""
+    n, cols, base = 1003, 7, 100 if prime else 0
+    tables, md, qs, clusters, bank = _clustered(n, cols, 3, 43, base)
+    bank, _ = _near_limit(tables, bank, md[:, base:], 0, 40)
+    bank, _ = _near_limit(tables, bank, md[:, base:], 3, 400)
+    lane_counts = _lanes(n, base, 228)
+    assert lane_counts[-1] < lane_counts[0]
+    plan = cd.LanePlan(tables, bank)
+    ct = _triples(plan, clusters, lane_counts, base)
+    got = cd.encode_lanes_raw(
+        cd.plan_to_torch(plan, "cpu"), torch.from_numpy(md.astype(np.int32)),
+        torch.from_numpy(qs.astype(np.int32)), lane_counts, base, ct)
+    want = jcd.encode_lanes_raw(
+        jcd.LanePlan(tables, bank), jnp.asarray(md.astype(np.int32)),
+        jnp.asarray(qs.astype(np.int32)), lane_counts, base, ct)
+    assert np.asarray(want[1]).any()
+    _assert_host(tables, bank, md, qs, clusters, lane_counts, base, got)
+    for w in np.flatnonzero(~np.asarray(want[1], dtype=bool)):
+        assert got[0][w] == want[0][w], f"lane {w}"
+
+
+def _bit_writer(pending: str, first: int, s3: int) -> str:
+    """The host's bit writer at one E1 step of k1 = 1: the pending bits,
+    the first bit, then s3 complements of it."""
+    return pending + str(first) + str(1 - first) * s3
+
+
+@pytest.mark.parametrize("s3", [31, 32, 53, 62, 63, 100])
+def test_chain_emits_pending_runs(s3):
+    """The plain K2b at a pending run of s3 bits: from the full interval
+    with 5 bits pending, one step onto the lower half (first bit 0, then
+    s3 1s) or the upper half (1, then 0s) packs the bit writer's bits."""
+    raw = cd.start_raw(2, "cpu")
+    raw[2][2], raw[2][3], raw[2][4] = s3, 0b10110, 5
+    upper = torch.tensor([0, 1])
+    trip = cd.pack_triples(upper, upper + 1, torch.full((2,), 2))[None]
+    words, n_words, carry = cd.chain_reference(trip, 1, [1, 1], raw)
+    for w in range(2):
+        bits = _bit_writer("10110", w, s3)
+        nw = len(bits) // 32
+        rest = bits[32 * nw:]
+        assert int(n_words[w]) == nw
+        assert [int(words[w, k]) & 0xFFFFFFFF for k in range(nw)] == [
+            int(bits[32 * k:32 * k + 32], 2) for k in range(nw)]
+        assert int(carry[3, w]) == int(rest or "0", 2)
+        assert int(carry[4, w]) == len(rest)
+        assert int(carry[2, w]) == 0 and int(carry[5, w]) == 0
+        assert (int(carry[0, w]), int(carry[1, w])) == (0, cd.FULL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [0, 1, 2])
+def test_rescale_kernels_match_plain(layout):
+    """K2a with the records of models at risk, and K2b, equal their plain
+    versions on the card in each layout; the payloads are the host
+    coder's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 has no CPU mode)")
+    n, cols, base = 1003, 7, 100
+    tables, md, qs, clusters, bank = _clustered(n, cols, 3, 43, base)
+    bank, _ = _near_limit(tables, bank, md[:, base:], 0, 40)
+    lane_counts = _lanes(n, base, 228)
+    plan = cd.LanePlan(tables, bank)
+    m = torch.from_numpy(md.astype(np.int32))
+    q = torch.from_numpy(qs.astype(np.int32))
+    got = cd.triples(cd.plan_to_torch(plan, "cuda"), m.cuda(), q.cuda(),
+                     lane_counts, base, 0, cols, layout=layout)
+    want = cd.triples_reference(cd.plan_to_torch(plan, "cpu"), m, q,
+                                lane_counts, base, 0, cols)
+    assert torch.equal(got.cpu(), want)
+    ct = _triples(plan, clusters, lane_counts, base)
+    _assert_host(tables, bank, md, qs, clusters, lane_counts, base,
+                 cd.encode_lanes_raw(cd.plan_to_torch(plan, "cuda"),
+                                     m.cuda(), q.cuda(), lane_counts, base,
+                                     ct))

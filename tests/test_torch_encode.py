@@ -78,6 +78,32 @@ def test_encode_matches_qvz_tpu(small_warmup, shards, prime):
         assert got.stats.phase_seconds[phase] >= 0.0, phase
 
 
+def rescale_input():
+    """12 x 65,520 reads of one column, 30 or 31 at -f 1.0: one model,
+    used by every read. The primed warmup shard (65,520 reads, a twelfth)
+    leaves its total within 112 + its cardinality of 2^19, so every lane
+    that uses it 15 times rescales."""
+    rng = np.random.default_rng(7)
+    return (30 + rng.integers(0, 2, (12 * 65_520, 1))).astype(np.uint8)
+
+
+RESCALE_KW = dict(shards=1801, prime=True, ratio=1.0)
+
+
+def test_encode_codes_lanes_that_rescale():
+    """Where qvz_tpu's device coder flags lanes (a model passes 2^19) and
+    re-codes them on the host, the port codes every lane: no fallback,
+    the container byte-equal to both of qvz_tpu's."""
+    data = rescale_input()
+    got = port.encode(data, DIST, well_state=WellState.debug(),
+                      device="cpu", **RESCALE_KW)
+    dev = _jax_encode(data, True, **RESCALE_KW)
+    host = _jax_encode(data, False, **RESCALE_KW)
+    assert dev.stats.coder_fallback_lanes > 0
+    assert got.stats.coder_fallback_lanes == 0
+    assert got.compressed == dev.compressed == host.compressed
+
+
 def test_shards_zero_picks_the_device_lane_count(small_warmup):
     """--shards 0 takes the device coder's lane count, so the container
     equals qvz_tpu's device path with shards=0."""

@@ -82,7 +82,8 @@ def _port_files():
             + [root / "scripts" / f for f in (
                 "profile_torch_encode.py", "time_k1_k4.py",
                 "compare_torch_e2e.py", "mesh_check_torch.py",
-                "sanitize_torch.py")])
+                "sanitize_torch.py", "time_k2_k5.py",
+                "phase17_counts_torch.py")])
 
 
 @pytest.mark.parametrize("path", _port_files(),
