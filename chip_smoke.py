@@ -12,9 +12,10 @@ Illumina-like quality scores made from seed 42, -f 0.5, MSE, --shards 0
 Phases:
 
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc
-  1. build the nine kernels (csrc/quantize.cu K1, csrc/coder.cu K2a and
-     K2b, csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5, and the
-     microbenchmark's issue, mix and selmix in csrc/microbench.cu) from
+  1. build the eleven kernels (csrc/quantize.cu K1, csrc/coder.cu K2a,
+     K2b and K2s, csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5
+     and K5p, and the microbenchmark's issue, mix and selmix in
+     csrc/microbench.cu) from
      the sources for sm_90a, one nvcc per source in parallel, with the
      ptxas report
   2. the input; device statistics (K3, one cluster) checked equal to the
@@ -63,26 +64,33 @@ Phases:
      port never calls it)
   8. K1 with the k-means ids against its plain version at the full shape,
      as in 3
-  9. K2a and K2b with the cluster-id segment (K2b's first pass) against
-     their plain versions over all columns, as in 4
+  9. K2s, the cluster-id segment's triples from the k-means ids on the
+     card, against its plain version and the host's rt.replay_model on
+     every lane, timed in turns with the plain version, its bound from its
+     counted SASS (k2s_bound); K2a and K2b with the segment (K2b's first
+     pass) against their plain versions over all columns, as in 4
  10. the end-to-end encode, -c 3 -T 4, median of 3 runs without -u, primed
      and unprimed: checked as in 5 against the port's host engine with
      n_clusters=3; hist, kmeans, quantize, coder_triples and coder_chain
-     launched by the encode
+     launched by the encode, and coder_segment (K2s)
  11. K5 against its plain version on the lanes of the four containers of
      phases 5 and 10: on the first 2 columns of every lane the rows, the
      final (l, u, t, bit position) and the flags equal, and over all
      columns for the -c 1 primed container (the plain loop takes tens of
      seconds there); the kernel timed over all columns; the -c 3 lanes
-     start mid-byte after their host cluster-id prologue; each
-     container's count of models at risk
- 12. the end-to-end decode of those containers through
+     start mid-byte after their cluster-id prologue; each container's
+     count of models at risk
+ 12. K5p on the lanes of each of those containers against its plain
+     version and, lane by lane, the host's rt.decode_cluster_prologue
+     (the -c 3 ids and states, the -c 1 starts), timed in turns with the
+     plain version, its bound from its counted SASS at -c 3 primed
+     (k5p_bound); then the end-to-end decode of those containers through
      qvz_tpu_torch.pipeline.decode.decode(device="cuda"), median of 3
      runs beside the port's host decoder in the same call: byte-equal to
      it and to the encode's -u reconstruction + 33, no lane flagged (only
-     a corrupt lane is), the decoder launched by the decodes; the first
-     decode's
-     peak device memory (torch.cuda.max_memory_allocated), the host RSS
+     a corrupt lane is), the decoder and cluster_prologue (K5p) launched
+     by the decodes, the prologue phase printed beside the decode's time;
+     the first decode's peak device memory (torch.cuda.max_memory_allocated), the host RSS
      before and after it and its waves of lanes
  13. the rescale on the card: 300,000 x 2 at --shards 2, unprimed, whose
      two lanes' models pass 2^19 (qvz_tpu flags both): the in-memory
@@ -90,10 +98,12 @@ Phases:
      coder_fallback_lanes 0, and decode(device="cuda") byte-equal to the
      host decoder with 0 lanes flagged, K2a, K2b and K5 launched; then
      rescale_case: a -c 3 plan of 16 lanes of 36,000 reads whose lanes
-     rescale (one model twice in a lane), K2a and K5 in each of layouts
-     0, 1 and 2, forced, and K2b against their plain versions on the CPU,
-     every payload the host coder's and every decode the host decoder's,
-     each kernel timed (median of 3); and pending_runs: K2b at pending
+     rescale (a column model and the cluster-id model twice in a lane),
+     K2a and K5 in each of layouts 0, 1 and 2, forced, and K2b, K2s and
+     K5p against their plain versions on the CPU, K2s and K5p also
+     against the host's replay and prologue, every payload the host
+     coder's and every decode the host decoder's, each kernel timed
+     (median of 3); and pending_runs: K2b at pending
      runs of 31 to 100 bits against its plain version and a bit
      writer
  14. K5 over all columns of the four containers at 32, 16, 8, 4, 2 and 1
@@ -113,8 +123,10 @@ Phases:
      fewer): the encode on the card byte-equal to the host engine and
      decode(device="cuda") byte-equal to the host decoder, K2a and K5
      reading the plan's tables from device memory (layout 1), with hist,
-     kmeans, quantize, coder_triples, coder_chain and decoder launched
-     by them and no lane coded or decoded on the host; then K4 at K =
+     kmeans, quantize, coder_segment, coder_triples, coder_chain,
+     cluster_prologue and decoder launched by them and no lane coded or
+     decoded on the host; K2s and K5p against their plain versions and
+     the host's replay and prologue, as in 9 and 12; then K4 at K =
      BIG_K against its plain version (median of 3) and kmeans_cluster at
      K = BIG_K on the card against rt.kmeans_host, as in 6; K3 at C =
      BIG_K (its counters in device memory) against its plain version and
@@ -153,9 +165,9 @@ Phases:
      -c 3 -T 4 primed at phase 10's shard count over
      make_mesh(devices=["cuda:0"] * 4), byte-equal to phase 10's primed
      container, and -c 1 primed at --shards 0 over 2 blocks, byte-equal to
-     phase 5's; K4 (each step), K3, K1 and K2a + K2b launched for every
-     block, counted call by call; the -c 3 container decoded on the card
-     (K5) to the host decoder's bytes; each encode's time and phase split
+     phase 5's; K4 (each step), K3, K1, K2a + K2b and, at -c 3, K2s
+     launched for every block, counted call by call; the -c 3 container
+     decoded on the card (K5p, K5) to the host decoder's bytes; each encode's time and phase split
      beside the one-device median. A check of correctness on one card,
      not a multi-GPU measurement
  20. torch.distributed (parallel/distributed.py): two child interpreters
@@ -175,13 +187,16 @@ Phases:
      of csrc/ in each of its code paths (K1 at -c 1 and -c 3; K2a in
      layouts 0-2, without and with the records of models that rescale;
      K2b with the cluster-id segment, through rescales and at pending
-     runs of 31-100 bits; K3 modes 0 and 1; K4's three sums modes, three
-     tiles a block or more; K5 and its text-row kernel in layouts 0-2,
-     primed and unprimed, and with records; issue, mix and selmix)
-     equal to its plain version on the CPU, then the corrupt-container
-     corpus (52 column-major QVZ2 containers of 20,000 x 50 with lanes)
-     decoded with device="cuda" to the host decoder's outcome, K5
-     launched for each container whose host stages pass. The script's
+     runs of 31-100 bits; K2s at -c 3 and through model 0's rescales;
+     K3 modes 0 and 1; K4's three sums modes, three tiles a block or
+     more; K5 and its text-row kernel in layouts 0-2, primed and
+     unprimed, and with records; K5p at -c 1 and -c 3, through model 0's
+     rescales and on lanes it flags; issue, mix and selmix) equal to its
+     plain version on the CPU, then the corrupt-container corpus (52
+     column-major QVZ2 containers of 20,000 x 50 with lanes) decoded with
+     device="cuda" to the host decoder's outcome, K5p and K5 launched for
+     each container whose host stages pass, K5p there equal to the
+     host's prologue lane by lane. The script's
      compute-sanitizer runs (memcheck, racecheck, synccheck, initcheck)
      are not part of this phase: the tool refuses a card inside a gVisor
      sandbox ("Device not supported"), and there the script raises
@@ -191,10 +206,10 @@ measured in turns, one call each. Each kernel's bound
 (qvz_tpu_torch.roofline) is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 the card's peak rate: for the microbenchmark's kernels the slowest pipe
-for the SASS of their inner loop; for K1, K2a, K2b, K3, K4 and K5 the
-slowest pipe for the least instructions of each of their loops' trips in
-their SASS times this run's trips (K5's serial steps and count search;
-k5_bound). A kernel faster than its bound fails, as does every other check, so the
+for the SASS of their inner loop; for K1, K2a, K2b, K2s, K3, K4, K5 and
+K5p the slowest pipe for the least instructions of each of their loops'
+trips in their SASS times this run's trips (K5's serial steps and count
+search; k5_bound). A kernel faster than its bound fails, as does every other check, so the
 script exits non-zero. The last two lines are the kernels' JSON record
 and the result line {"ok": true, "device": {...}}. Without a CUDA
 device, or without the rest of the repository, the script fails before
@@ -429,11 +444,12 @@ def coder_bounds(gpu, plan_t, W: int, L: int, n_lines: int, cols: int,
     return out
 
 
-def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
-                tag: str) -> dict:
+def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, clusters,
+                gpu, tag: str) -> dict:
     """K2a and K2b against their plain versions over all columns, one
-    chunk (the segment's chain first where ctrip is given), and K2 through
-    code_lanes against both; times, bounds and K2b's cycles a step."""
+    chunk (the segment's chain first where the lines' cluster ids
+    `clusters` are given, its triples from K2s), and K2 through code_lanes
+    against both; times, bounds and K2b's cycles a step."""
     from qvz_tpu_torch.ops import coder_device as cd
 
     dev = mid.device
@@ -442,7 +458,7 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
     N = int(sum(lane_counts))
     require(cd.chunk_columns(cols, W, L) == cols,
             f"{tag} all {cols} columns in one chunk")
-    mw = -(-(cols + (ctrip is not None)) * L * cd.BITS_PER_STEP_BOUND
+    mw = -(-(cols + (clusters is not None)) * L * cd.BITS_PER_STEP_BOUND
            // 32) + 2
     out = {}
 
@@ -462,8 +478,8 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
     del trip_p
     risk = cd.risk_tables(plan_t, L)
 
-    seg = (cd.segment_triples(ctrip, lane_counts, dev) if ctrip is not None
-           else None)
+    seg = (cd.segment_triples(plan_t, clusters, lane_counts, base)
+           if clusters is not None else None)
 
     def start(chain):
         raw = cd.start_raw(W, dev, mw)
@@ -481,7 +497,7 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
                               start(cd.chain_reference))
     torch.cuda.synchronize()
     b_plain_ms = (time.perf_counter() - t) * 1e3
-    full = cd.code_lanes(plan_t, mid, qs, lane_counts, base, ctrip)
+    full = cd.code_lanes(plan_t, mid, qs, lane_counts, base, clusters)
     fetched = [cd.fetch_lanes(*r) for r in (got, want, full)]
     (wk, nk, ck), (wp, np_, cp), (wf, nf, cf) = fetched
     require(not (ck[5] != 0).any() and not (cf[5] != 0).any(),
@@ -556,6 +572,201 @@ def coder_phase(torch, np, plan_t, mid, qs, lane_counts, base, ctrip, gpu,
     return {"err": max(err_a, err_b), "a_ms": a_ms, "a_plain_ms": a_plain_ms,
             "b_ms": b_ms, "b_plain_ms": b_plain_ms, "bounds": bounds,
             "cycles": cycles, "live": live, "sum_x": sum_x}
+
+
+def k2s_bound(gpu, W: int, L: int, n: int, sum_x: int, rescales: int,
+              card: int):
+    """K2s's bound from its counted SASS (segment_kernel): each loop's least
+    trip by pipe times its trips on this run's data. The steps, W x L
+    trips (every lane runs to the longest lane's end, writing 0 past its
+    own), the n live ones through the count store; the prefix sum, sum_x
+    trips (the ids); the halving, card trips a rescale of model 0; the
+    counts' load, card a lane. Bytes: the ids and the lane offsets in,
+    the triples out."""
+    from qvz_tpu_torch import microbench as mb
+    f = _sass("segment_kernel")
+    step = _loop(mb, f, "STG.E.64")
+    prefix = _loop(mb, f, "LDS", inside=step, without="STS")
+    halve = _loop(mb, f, "STS", inside=step)
+    load = _loop(mb, f, "LDG", outside=step)
+    nbytes = n + 8 * (W + 1) + 4 * card + 8 * L * W
+    return _pipe_bound(gpu, [
+        (W * L - n, mb.trip_min(f, step[0])),
+        (n, mb.trip_min(f, step[0], "STS")),
+        (sum_x, mb.trip_min(f, prefix[0])),
+        (rescales * card, mb.trip_min(f, halve[0])),
+        (W * card, mb.trip_min(f, load[0]))], nbytes)
+
+
+def k5p_bound(gpu, W: int, n: int, sum_x: int, rescales: int, card: int,
+              pay_bytes: int):
+    """K5p's bound from its counted SASS (cluster_prologue_kernel): each
+    loop's least trip by pipe times its trips on this run's data. The
+    steps, n (the lanes' lines where card > 1), each through the
+    reciprocal; the count search, sum_x trips (the ids); the halving, card
+    trips a rescale of model 0; the counts' load, card a lane. Bytes: the
+    payload bytes the prologues consume and the lanes' offsets in, the ids,
+    states and flags out."""
+    from qvz_tpu_torch import microbench as mb
+    f = _sass("cluster_prologue_kernel")
+    step = _loop(mb, f, "MUFU.RCP64H")
+    search = _loop(mb, f, "LDS", inside=step, without="STS")
+    halve = _loop(mb, f, "STS", inside=step)
+    load = _loop(mb, f, "LDG", outside=step)
+    nbytes = pay_bytes + 8 * (W + 1) + 16 * W + 4 * card + n + 40 * W
+    return _pipe_bound(gpu, [
+        (n, mb.trip_min(f, step[0], "MUFU.RCP64H")),
+        (sum_x, mb.trip_min(f, search[0])),
+        (rescales * card, mb.trip_min(f, halve[0])),
+        (W * card, mb.trip_min(f, load[0]))], nbytes)
+
+
+def _model0_replay(np, init_counts, init_total, ids, lane_counts, base):
+    """The host's replay of the cluster-id model from init_counts and
+    init_total over each lane's ids (rt.replay_model): the packed (L, W)
+    triples, the sum of the ids and model 0's rescales."""
+    from qvz_tpu_torch.native import runtime as rt
+    W, L = len(lane_counts), max(lane_counts)
+    trip = np.zeros((L, W), dtype=np.int64)
+    rescales = 0
+    lo = base
+    for w, cnt in enumerate(lane_counts):
+        h = rt.replay_model(init_counts, init_total,
+                            ids[lo:lo + cnt]).astype(np.int64)
+        trip[:cnt, w] = h[:, 0] | (h[:, 1] << 20) | (h[:, 2] << 40)
+        rescales += int((h[:, 2] + 8 > 1 << 19).sum())
+        lo += cnt
+    return trip, int(ids[base:lo].astype(np.int64).sum()), rescales
+
+
+def segment_phase(torch, np, plan, plan_t, cl_t, ids, lane_counts, base,
+                  gpu, tag: str) -> dict:
+    """K2s against its plain version (on the card's tensors) and the host's
+    rt.replay_model on every lane of a -c K plan: the triples equal; K2s
+    timed in turns with its plain version; its bound from its counted SASS
+    (k2s_bound). ids: the lines' cluster ids on the host."""
+    from qvz_tpu_torch.ops import coder_device as cd
+
+    out = {}
+
+    def kernel():
+        out["k"] = cd.segment_triples(plan_t, cl_t, lane_counts, base)
+
+    def plain():
+        out["p"] = cd.segment_triples_reference(plan_t, cl_t, lane_counts,
+                                                base)
+
+    ms, plain_ms, runs, _ = in_turns(kernel, plain, torch, runs=3)
+    got, want = out["k"], out["p"]
+    err = max_err([got], [want])
+    require(err == 0 and torch.equal(got, want),
+            f"{tag} K2s's triples equal its plain version's")
+    host_trip, sum_x, rescales = _model0_replay(
+        np, plan.cluster_init_counts, plan.cluster_init_total, ids,
+        lane_counts, base)
+    require(np.array_equal(got.cpu().numpy(), host_trip),
+            f"{tag} K2s's triples are the host replay's on every lane")
+    W, L = len(lane_counts), max(lane_counts)
+    n = int(sum(lane_counts))
+    card = int(plan_t["cluster_init"].numel())
+    bound = k2s_bound(gpu, W, L, n, sum_x, rescales, card)
+    print(f"{tag} K2s cluster-id segment, {W} lanes x {L} lines, {card} "
+          f"clusters: equal to its plain version and the host replay "
+          f"(max abs err {err}), model 0 rescaling {rescales} times; kernel "
+          f"{ms:.4f} ms ({runs}), plain {plain_ms:.3f} ms (median of 3, in "
+          f"turns); bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]}; SASS "
+          f"instructions by pipe {json.dumps(bound[3])})", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound}
+
+
+def prologue_check(blob, lanes, tag: str) -> int:
+    """K5p's output in `lanes` (pipeline.decode.prepare_lanes) against the
+    host's cluster-id prologue (rt.decode_cluster_prologue) lane by lane:
+    the ids and (l, u, t, consumed bits) where the host passes, the flag
+    of its failure (-3 FLAG_BAD, -1 FLAG_CLUSTER) where it does not, and
+    with one cluster the start of the payload's first 22 bits. Returns the
+    lanes K5p flagged."""
+    import numpy as np
+    from qvz_tpu_torch.native import runtime as rt
+    from qvz_tpu_torch.ops import decoder_device as dd
+    from qvz_tpu_torch.pipeline import decode as pdec
+
+    head, tables = pdec._parse(blob)
+    cl = lanes.cl.cpu().numpy() if lanes.cl is not None else None
+    states = lanes.starts.cpu().numpy()
+    flags = lanes.start_flags.cpu().numpy()
+    offs = np.concatenate([[0], np.cumsum(lanes.lane_counts)])
+    for w, s in enumerate(head.shards[lanes.first:]):
+        pay = bytes(blob[s.payload_off:s.payload_off + s.payload_len])
+        if cl is None:
+            require(tuple(states[w]) == dd.start_state(pay) and not flags[w],
+                    f"{tag}: K5p's start of lane {w} is the payload's")
+            continue
+        try:
+            h = rt.decode_cluster_prologue(tables, pay, s.lines,
+                                           init_bank=lanes.bank)
+        except ValueError as e:
+            status = int(str(e).split()[-1])
+            require(flags[w] == {-3: dd.FLAG_BAD, -1: dd.FLAG_CLUSTER}[status],
+                    f"{tag}: K5p flags lane {w} as the host's status "
+                    f"{status}")
+            continue
+        require(not flags[w] and np.array_equal(cl[offs[w]:offs[w + 1]],
+                                                h[0])
+                and tuple(states[w]) == tuple(h[1:]),
+                f"{tag}: K5p's ids and state of lane {w} are the host "
+                "prologue's")
+    return int((flags != 0).sum())
+
+
+def prologue_phase(torch, np, comp, gpu, tag: str, bound: bool = False):
+    """K5p on the lanes of a container: against its plain version (on the
+    card's tensors) and the host's prologue lane by lane (prologue_check),
+    timed in turns with the plain version; with `bound`, its bound from its
+    counted SASS (k5p_bound)."""
+    from qvz_tpu_torch.ops import decoder_device as dd
+    from qvz_tpu_torch.pipeline import decode as pdec
+
+    lanes = pdec.prepare_lanes(comp, "cuda")
+    out = {}
+
+    def kernel():
+        out["k"] = dd.cluster_prologue(lanes.dplan_t, lanes.pays,
+                                       lanes.lane_counts)
+
+    def plain():
+        out["p"] = dd.cluster_prologue_reference(lanes.dplan_t, lanes.pays,
+                                                 lanes.lane_counts)
+
+    ms, plain_ms, runs, _ = in_turns(kernel, plain, torch, runs=3)
+    got = [x for x in out["k"] if x is not None]
+    want = [x for x in out["p"] if x is not None]
+    err = max_err(got, want)
+    require(err == 0 and len(got) == len(want)
+            and all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"{tag} K5p's ids, states and flags equal its plain version's")
+    flagged = prologue_check(comp, lanes, tag)
+    require(flagged == 0, f"{tag} K5p flags no lane")
+    W, n = len(lanes.lane_counts), int(sum(lanes.lane_counts))
+    card = int(lanes.dplan_t["cluster_init"].numel())
+    res = {"err": err, "ms": ms, "plain_ms": plain_ms}
+    line = (f"{tag} K5p {W} lanes, {card} cluster(s): ids and start states "
+            f"equal to its plain version and the host's (max abs err {err}), "
+            f"0 flagged; kernel {ms:.4f} ms ({runs}), plain {plain_ms:.3f} ms "
+            f"(median of 3, in turns)")
+    if bound:
+        _, sum_x, rescales = _model0_replay(
+            np, lanes.dplan_t["cluster_init"].cpu().numpy(),
+            lanes.dplan_t["cluster_total"], lanes.cl.cpu().numpy(),
+            lanes.lane_counts, 0)
+        pay_bytes = int(-(-lanes.starts[:, 3].cpu() // 8).sum())
+        res["bound"] = k5p_bound(gpu, W, n, sum_x, rescales, card, pay_bytes)
+        line += (f"; model 0 rescaling {rescales} times, {pay_bytes} payload "
+                 f"bytes; bound {res['bound'][0]:.5f} ms ({res['bound'][1]}, "
+                 f"{res['bound'][2]}; SASS instructions by pipe "
+                 f"{json.dumps(res['bound'][3])})")
+    print(line, flush=True)
+    return res
 
 
 def proc_status_kb(field: str) -> int:
@@ -917,14 +1128,10 @@ def clustered_phases(torch, np, data, dist, gpu) -> dict:
         tables, md0, qs0, clusters[:w_n], w_n))
     plan_t = cd.plan_to_torch(plan, dev)
     lane_counts, base = counts[1:], int(offs[1])
-    ctrip = np.zeros((len(lane_counts), max(lane_counts), 3), np.uint32)
-    for w in range(len(lane_counts)):
-        lo, hi = int(offs[1 + w]), int(offs[2 + w])
-        ctrip[w, : hi - lo] = rt.replay_model(
-            plan.cluster_init_counts, plan.cluster_init_total,
-            clusters[lo:hi])
+    res["k2s"] = segment_phase(torch, np, plan, plan_t, cl_t, clusters,
+                               lane_counts, base, gpu, "[9]")
     res["k2"] = coder_phase(torch, np, plan_t, mid, qs, lane_counts, base,
-                            ctrip, gpu, "[9]")
+                            cl_t, gpu, "[9]")
     del mid, qs, data_t
 
     # -- 10. the end-to-end encode, -c 3 -T 4 -------------------------------
@@ -978,8 +1185,8 @@ def clustered_phases(torch, np, data, dist, gpu) -> dict:
               flush=True)
     res["launches"] = dict(_build.LAUNCHES)
     print(f"[10] kernel launches by the -c 3 encodes: {res['launches']}")
-    for name in ("hist", "kmeans", "quantize", "coder_triples",
-                 "coder_chain"):
+    for name in ("hist", "kmeans", "quantize", "coder_segment",
+                 "coder_triples", "coder_chain"):
         require(res["launches"].get(name, 0) >= 1,
                 f"the -c 3 encode launched {name}")
     return res
@@ -1066,7 +1273,12 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
         res["all_ms"][name] = all_ms
         del lanes, outs
 
-    # -- 12. the end-to-end decode ------------------------------------------
+    # -- 12. K5p on each container, then the end-to-end decode -------------
+    res["k5p"] = {}
+    for name, (comp, _) in containers.items():
+        res["k5p"][name] = prologue_phase(
+            torch, np, comp, gpu, f"[12] {name}:",
+            bound=name == "-c 3 prime=True")
     _build.LAUNCHES.clear()
     for name, (comp, recon) in containers.items():
         n, cols = recon.shape
@@ -1102,6 +1314,9 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
         mb = n * (cols + 1) / 1e6
         res["e2e"][name] = (secs, host_secs)
         phases = {k: round(v, 6) for k, v in st["phase_seconds"].items()}
+        print(f"[12] decode {name}: prologue phase {phases['prologue']:.6f}"
+              f" s of {secs:.6f} s, decoder phase {phases['decoder']:.6f} s "
+              "(last run)", flush=True)
         print(f"[12] decode {name}: byte-equal to the host decoder and the "
               f"-u reconstruction, {st['lanes']} lanes, 0 flagged; median "
               f"of 3 {secs:.4f} s = {mb / secs:.1f} MB/s (runs "
@@ -1111,8 +1326,9 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
               flush=True)
     res["launches"] = dict(_build.LAUNCHES)
     print(f"[12] kernel launches by the decodes: {res['launches']}")
-    require(res["launches"].get("decoder", 0) >= 1,
-            "the decode launched the decoder")
+    for name in ("cluster_prologue", "decoder"):
+        require(res["launches"].get(name, 0) >= 1,
+                f"the decode launched {name}")
 
     # -- 13. lanes that reach the rescale, on the card ----------------------
     rng = np.random.default_rng(1)
@@ -1138,7 +1354,8 @@ def decode_phases(torch, np, containers, dist, gpu, k2) -> dict:
             and st["fallback_lanes"] == 0,
             "the device decode of the rescale input is byte-equal to the "
             "host decoder, no lane flagged")
-    for name in ("coder_triples", "coder_chain", "decoder"):
+    for name in ("coder_triples", "coder_chain", "cluster_prologue",
+                 "decoder"):
         require(launches.get(name, 0) >= 1, f"[13] launched {name}")
     lanes = port.prepare_lanes(comp, "cuda")
     risk = cd.risk_tables(lanes.dplan_t, max(lanes.lane_counts))
@@ -1227,18 +1444,19 @@ def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
                  lines=RESCALE_LINES, rescales=2, tag="[13]") -> dict:
     """Phase 13's rescale case: K2a, K2b and K5 against their plain
     versions (on CPU tensors, the same inputs) in each of layouts 0, 1 and
-    2, forced, on a -c 3 plan whose lanes rescale. `lanes` lanes of about
+    2, forced, on a -c 3 plan whose lanes rescale, and K2s and K5p against
+    theirs and the host's replay and prologue. `lanes` lanes of about
     `lines` reads x 1 column (30 or 31 at -f 1.0: one model a cluster),
     cluster ids 0 for 97% of the reads, unprimed but for a bank whose
-    models of clusters 0 and 1 start 24 and 8,000 short of 2^19: cluster
-    0's model rescales `rescales` times or more in lane 0 (counted by a
-    replay of the host's update; twice at the defaults), cluster 1's once
-    where its lanes are long enough. K2b is held against its plain
-    version over the column, both from K2b's state after the cluster-id
-    segment (phase 9 holds the segment); every lane's payload equals the
-    host coder's, its decode the host decoder's, and no lane is flagged.
-    Then pending_runs. Returns the kernels' times (ms) and the plain
-    versions' (ms, CPU)."""
+    models of clusters 0 and 1 start 24 and 8,000 short of 2^19, and the
+    cluster-id model (model 0) 24 short: cluster 0's model and model 0
+    rescale `rescales` times or more in lane 0 (counted by a replay of the
+    host's update; twice at the defaults), cluster 1's once where its
+    lanes are long enough. K2b is held against its plain version over the
+    column, both from K2b's state after the cluster-id segment; every
+    lane's payload equals the host coder's, its decode the host
+    decoder's, and no lane is flagged. Then pending_runs. Returns the
+    kernels' times (ms) and the plain versions' (ms, CPU)."""
     from qvz_tpu_torch.constants import ARITH_R, MODE_RATIO
     from qvz_tpu_torch.native import runtime as rt
     from qvz_tpu_torch.ops import coder_device as cd
@@ -1276,6 +1494,8 @@ def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
         bcounts[moff[m]] = ARITH_R - short - (cards[m] - 1)
         totals[m] = ARITH_R - short
         busy.append(m)
+    bcounts[0] = ARITH_R - 24 - (K - 1)            # model 0, the ids'
+    totals[0] = ARITH_R - 24
     bank = np.concatenate([bcounts, totals])
 
     # the host's update of cluster 0's model over lane 0: its rescales
@@ -1289,6 +1509,10 @@ def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
             twice += 1
     require(twice >= rescales,
             f"a model rescales {rescales} times in lane 0 ({twice})")
+    ids0 = rt.replay_model(bcounts[:K], totals[0], cl[:lane_counts[0]])
+    twice0 = int((ids0[1:, 2] != ids0[:-1, 2] + 8).sum())
+    require(twice0 >= rescales,
+            f"model 0 rescales {rescales} times in lane 0 ({twice0})")
 
     pays = [rt.encode_precomputed_colmajor(
         tables, np.ascontiguousarray(md[:, offs[w]:offs[w + 1]]),
@@ -1298,11 +1522,8 @@ def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
     plan = cd.LanePlan(tables, bank)
     plan_c, plan_d = cd.plan_to_torch(plan, "cpu"), cd.plan_to_torch(plan,
                                                                       dev)
-    ct = np.zeros((W, max(lane_counts), 3), dtype=np.uint32)
-    for w in range(W):
-        ct[w, :lane_counts[w]] = rt.replay_model(
-            plan.cluster_init_counts, plan.cluster_init_total,
-            cl[offs[w]:offs[w + 1]])
+    cl_c = torch.from_numpy(cl)
+    cl_d = cl_c.to(dev)
     mid_c = torch.from_numpy(md.astype(np.int32))
     qs_c = torch.from_numpy(qs.astype(np.int32))
     mid_d, qs_d = mid_c.to(dev), qs_c.to(dev)
@@ -1329,9 +1550,25 @@ def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
                 "rescale case")
         res["a_ms"][lay] = ms(a_run)
 
+    # -- K2s, the cluster-id segment through model 0's rescales -------------
+    t = time.perf_counter()
+    seg_p = cd.segment_triples_reference(plan_c, cl_c, lane_counts, 0)
+    res["plain_ms"]["coder_segment"] = (time.perf_counter() - t) * 1e3
+    seg_d = cd.segment_triples(plan_d, cl_d, lane_counts, 0)
+    require(torch.equal(seg_d.cpu(), seg_p),
+            f"{tag} K2s equals its plain version on the rescale case")
+    for w in range(W):
+        h = rt.replay_model(plan.cluster_init_counts,
+                            plan.cluster_init_total,
+                            cl[offs[w]:offs[w + 1]]).astype(np.int64)
+        require(np.array_equal(seg_p[:lane_counts[w], w].numpy(),
+                               h[:, 0] | (h[:, 1] << 20) | (h[:, 2] << 40)),
+                f"{tag} K2s's triples of lane {w} are the host replay's")
+    res["k2s_ms"] = ms(lambda: cd.segment_triples(plan_d, cl_d, lane_counts,
+                                                  0))
+
     # -- K2b over the column, from its state after the cluster-id segment --
     mw = -(-(cols + 1) * L * cd.BITS_PER_STEP_BOUND // 32) + 2
-    seg_d = cd.segment_triples(ct, lane_counts, dev)
     trip_d = trip_p.to(dev)
     after = [r.cpu().clone() for r in cd.chain(seg_d, 1, lane_counts,
                                                 cd.start_raw(W, dev, mw))]
@@ -1353,27 +1590,41 @@ def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
             f"{tag} K2b equals its plain version on the rescale case")
     require(cd.payloads_from_raw(wk, nk, ck)[0] == pays,
             f"{tag} K2 gives the host coder's payload in every lane")
-    full = cd.encode_lanes_raw(plan_d, mid_d, qs_d, lane_counts, 0, ct)
+    full = cd.encode_lanes_raw(plan_d, mid_d, qs_d, lane_counts, 0, cl_d)
     require(full[0] == pays and not full[1].any(),
             f"{tag} code_lanes gives the host coder's payloads, no lane "
             "flagged")
 
-    # -- K5: after each lane's cluster-id prologue on the host -------------
-    pro = [rt.decode_cluster_prologue(tables, p, cnt, init_bank=bank)
-           for p, cnt in zip(pays, lane_counts)]
-    require(np.array_equal(np.concatenate([p[0] for p in pro]), cl),
+    # -- K5p: the cluster-id prologues through model 0's rescales --------
+    dplan = dd.DecodePlan(plan, tables)
+    dplan_c, dplan_d = (dd.decode_plan_to_torch(dplan, "cpu"),
+                        dd.decode_plan_to_torch(dplan, dev))
+    pays_c, pays_d = dd.pack_payloads(pays, "cpu"), dd.pack_payloads(pays,
+                                                                      dev)
+    t = time.perf_counter()
+    pro_p = dd.cluster_prologue_reference(dplan_c, pays_c, lane_counts)
+    res["plain_ms"]["cluster_prologue"] = (time.perf_counter() - t) * 1e3
+    pro_d = dd.cluster_prologue(dplan_d, pays_d, lane_counts)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(pro_d, pro_p)),
+            f"{tag} K5p equals its plain version on the rescale case")
+    for w in range(W):
+        h = rt.decode_cluster_prologue(tables, pays[w], lane_counts[w],
+                                       init_bank=bank)
+        require(np.array_equal(pro_p[0][offs[w]:offs[w + 1]].numpy(), h[0])
+                and pro_p[1][w].tolist() == list(h[1:])
+                and int(pro_p[2][w]) == 0,
+                f"{tag} K5p's ids and state of lane {w} are the host "
+                "prologue's")
+    require(np.array_equal(pro_p[0].numpy(), cl),
             f"{tag} the prologues give the cluster ids")
-    starts = torch.tensor([p[1:] for p in pro], dtype=torch.int64)
+    res["k5p_ms"] = ms(lambda: dd.cluster_prologue(dplan_d, pays_d,
+                                                   lane_counts))
+    starts = pro_p[1]
     draws_t = torch.from_numpy(np.ascontiguousarray(
         host._shard_draws(states, lane_counts, cols).T))
-    cl_c = torch.from_numpy(cl)
-    dplan = dd.DecodePlan(plan, tables)
-    args_c = (dd.decode_plan_to_torch(dplan, "cpu"),
-              dd.pack_payloads(pays, "cpu"), draws_t, cl_c, lane_counts, 0,
-              starts)
-    args_d = (dd.decode_plan_to_torch(dplan, dev),
-              dd.pack_payloads(pays, dev), draws_t.to(dev), cl_c.to(dev),
-              lane_counts, 0, starts.to(dev))
+    args_c = (dplan_c, pays_c, draws_t, cl_c, lane_counts, 0, starts)
+    args_d = (dplan_d, pays_d, draws_t.to(dev), pro_d[0], lane_counts, 0,
+              pro_d[1])
     out_p = torch.zeros((n, cols + 1), dtype=torch.uint8)
     t = time.perf_counter()
     fin_p = dd.decode_lanes_reference(*args_c, out_p, 33)
@@ -1402,9 +1653,12 @@ def rescale_case(torch, np, dist, dev="cuda", lanes=RESCALE_LANES,
           f"(last {lane_counts[-1]}) x {cols} column: {risk['models']} "
           f"models at risk (K2a records {8 * W * int(risk['roff_h'][-1])} B, "
           f"K5 {8 * W * risk['rec_max']} B), cluster 0's model rescaling "
-          f"{twice} times in lane 0; every lane's payload the host coder's "
-          f"and its decode the host decoder's, 0 flagged; equal to the plain "
-          f"versions: K2a layouts 0/1/2 "
+          f"{twice} times in lane 0 and model 0 {twice0} times; every "
+          f"lane's payload the host coder's and its decode the host "
+          f"decoder's, 0 flagged; K2s's triples the host replay's and K5p's "
+          f"ids and states the host prologue's; equal to the plain "
+          f"versions: K2s {res['k2s_ms']:.3f} ms, K5p {res['k5p_ms']:.3f} "
+          f"ms, K2a layouts 0/1/2 "
           + "/".join(f"{v:.3f}" for v in res["a_ms"].values())
           + f" ms, K2b {res['b_ms']:.3f} ms, K5 layouts 0/1/2 "
           + "/".join(f"{v:.3f}" for v in res["k5_ms"].values())
@@ -1504,8 +1758,9 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
             f"-c {K}: decode(device='cuda') byte-equal to the host decoder")
     require(out.stats.coder_fallback_lanes == 0 and st["fallback_lanes"] == 0,
             f"-c {K}: no lane coded or decoded on the host")
-    for name in ("hist", "kmeans", "quantize", "coder_triples",
-                 "coder_chain", "decoder"):
+    for name in ("hist", "kmeans", "quantize", "coder_segment",
+                 "coder_triples", "coder_chain", "cluster_prologue",
+                 "decoder"):
         require(launches.get(name, 0) >= 1, f"-c {K}: {name} launched")
 
     # -- each layout that holds the plan against the plain versions --------
@@ -1520,8 +1775,12 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
     k3 = k3_big(torch, np, data_t, cl_t, (c0, cond), K, gpu)
     k1, (mid, qs, _) = k1_phase(torch, tables, data_t, draws_t, cl_t, gpu,
                                 "[16]")
-    plan_t = cd.plan_to_torch(cd.LanePlan(tables, None), dev)
+    plan = cd.LanePlan(tables, None)
+    plan_t = cd.plan_to_torch(plan, dev)
     lane_counts, base = counts[1:], int(offs[1])
+    k2s = segment_phase(torch, np, plan, plan_t, cl_t, cl, lane_counts, base,
+                        gpu, f"[16] -c {K}:")
+    k5p = prologue_phase(torch, np, out.compressed, gpu, f"[16] -c {K}:")
     want = cd.triples_reference(plan_t, mid, qs, lane_counts, base, 0, cols)
     a_ms = {}
     for lay in (1, 2):
@@ -1567,7 +1826,8 @@ def big_plan_phase(torch, np, dist, gpu) -> dict:
           f"to the plain versions: K2a layout 1 {a_ms[1]:.3f} ms, layout 2 "
           f"{a_ms[2]:.3f} ms; K5 layout 1 {k5_ms[1]:.3f} ms, layout 2 "
           f"{k5_ms[2]:.3f} ms (median of 3)", flush=True)
-    return {"k1_err": k1["err"], "k4_err": k4["err"], "k3": k3}
+    return {"k1_err": k1["err"], "k4_err": k4["err"], "k3": k3,
+            "k2s_err": k2s["err"], "k5p_err": k5p["err"]}
 
 
 # A child interpreter of phase 17: brings up its CUDA context, then runs
@@ -2026,8 +2286,9 @@ def mesh_phase(torch, np, data, dist, containers, e2e, k4_iters) -> dict:
     the one card. -c 3 -T 4 primed at phase 10's shard count over 4
     blocks, byte-equal to phase 10's primed container; -c 1 primed at
     --shards 0 over 2 blocks, byte-equal to phase 5's. Every block's K4
-    steps, K3, K1, K2a and K2b launches are counted call by call; the -c 3
-    container decodes on the card (K5) to the host decoder's bytes.
+    steps, K3, K1, K2a, K2b and (-c 3) K2s launches are counted call by
+    call; the -c 3 container decodes on the card (K5p, K5) to the host
+    decoder's bytes.
     Returns the launches, the kernels' under their _build names."""
     from qvz_tpu_torch import _build
     from qvz_tpu_torch.ops import coder_device, kmeans, quantize
@@ -2067,6 +2328,8 @@ def mesh_phase(torch, np, data, dist, containers, e2e, k4_iters) -> dict:
                "quantize": ("quantize_t_device", blocks),
                "coder_triples": ("code_lanes", blocks),
                "coder_chain": ("code_lanes", blocks)}
+        if steps:
+            per["coder_segment"] = ("code_lanes", blocks)
         for kernel, (fn, calls) in per.items():
             got = [c.get(kernel, 0) for c in rec.calls[fn]]
             require(len(got) == calls and all(g >= 1 for g in got),
@@ -2084,8 +2347,8 @@ def mesh_phase(torch, np, data, dist, containers, e2e, k4_iters) -> dict:
             _build.LAUNCHES.clear()
             st = {}
             got = port_dec.decode(out.compressed, device="cuda", stats=st)
-            launches["decoder"] = (launches.get("decoder", 0)
-                                   + _build.LAUNCHES["decoder"])
+            for k in ("cluster_prologue", "decoder"):
+                launches[k] = launches.get(k, 0) + _build.LAUNCHES[k]
             require(_build.LAUNCHES["decoder"] >= 1
                     and st["fallback_lanes"] == 0
                     and np.array_equal(got, host.decode(out.compressed)),
@@ -2325,8 +2588,10 @@ def sanitizer_phase() -> dict:
           f"equal to its plain version (launches {rec['launches']}); "
           f"corrupt corpus: {c['containers']} containers, {c['raised']} "
           f"raised and {c['decoded']} decoded as the host decoder, "
-          f"{c['reached_k5']} through K5 ({c['flagged_lanes']} lanes "
-          f"flagged and decoded again on the host), {c['seconds']:.1f} s; "
+          f"{c['reached_k5']} through K5p and K5 ({c['flagged_lanes']} "
+          f"lanes flagged and decoded again on the host; K5p equal to the "
+          f"host's prologue on {c['prologue_lanes']} lanes, "
+          f"{c['prologue_flagged']} flagged), {c['seconds']:.1f} s; "
           f"child {rec['seconds']:.1f} s of {secs:.1f} s", flush=True)
     print(f"[22] code paths: {'; '.join(rec['paths'])}", flush=True)
     return rec
@@ -2531,6 +2796,7 @@ def main() -> int:
     # -- 11.-13. the device decode -------------------------------------------
     dec = decode_phases(torch, np, containers, dist, gpu, k2)
     launches["decoder"] = dec["launches"]["decoder"]
+    launches["cluster_prologue"] = dec["launches"]["cluster_prologue"]
 
     # -- 15. the integer-issue microbenchmark --------------------------------
     mb_kernels = microbench_phase()
@@ -2614,6 +2880,26 @@ def main() -> int:
          "ms": dec["all_ms"]["-c 1 prime=True"],
          "plain_ms": dec["plain_all_ms"], "bound_ms": dec["bound"][0],
          "bound_by": dec["bound"][1], "library_ms": None},
+        # K2s and K5p have no TPU kernel: each replaces qvz_tpu's host step
+        {"name": "coder_segment", "route": "cuda",
+         "source": "qvz_tpu_torch/csrc/coder.cu",
+         "replaces": "qvz_tpu/pipeline/encode.py:360",
+         "launches": launches["coder_segment"],
+         "max_abs_err": max(clus["k2s"]["err"], big["k2s_err"]),
+         "ms": clus["k2s"]["ms"], "plain_ms": clus["k2s"]["plain_ms"],
+         "bound_ms": clus["k2s"]["bound"][0],
+         "bound_by": clus["k2s"]["bound"][1], "library_ms": None},
+        {"name": "cluster_prologue", "route": "cuda",
+         "source": "qvz_tpu_torch/csrc/decoder.cu",
+         "replaces": "qvz_tpu/pipeline/decode.py:281",
+         "launches": launches["cluster_prologue"],
+         "max_abs_err": max([big["k5p_err"]] + [
+             r["err"] for r in dec["k5p"].values()]),
+         "ms": dec["k5p"]["-c 3 prime=True"]["ms"],
+         "plain_ms": dec["k5p"]["-c 3 prime=True"]["plain_ms"],
+         "bound_ms": dec["k5p"]["-c 3 prime=True"]["bound"][0],
+         "bound_by": dec["k5p"]["-c 3 prime=True"]["bound"][1],
+         "library_ms": None},
         *mb_kernels,
     ]
     for k in kernels:

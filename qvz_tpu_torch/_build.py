@@ -38,9 +38,10 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Kernel launches per wrapper ("quantize", "coder_triples" and
-# "coder_chain" (K2a, K2b), "hist", "kmeans", "decoder", and the
-# microbenchmark's "issue", "mix" and "selmix"): each
+# Kernel launches per wrapper ("quantize", "coder_triples",
+# "coder_chain" and "coder_segment" (K2a, K2b, K2s), "hist", "kmeans",
+# "decoder" and "cluster_prologue" (K5, K5p), and the microbenchmark's
+# "issue", "mix" and "selmix"): each
 # wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -143,6 +144,9 @@ def load(lineinfo: bool = False) -> ctypes.CDLL:
     lib.qvz_coder_chain.argtypes = [p, i32, i32, p, i32, p, i64, p, p,
                                     i32, p]
     lib.qvz_coder_chain.restype = ctypes.c_int
+    lib.qvz_coder_segment.argtypes = [p, p, i32, i32, p, i32, i64, p, i32,
+                                      p]
+    lib.qvz_coder_segment.restype = ctypes.c_int
     lib.qvz_hist.argtypes = [p, p, i64, i32, i32, i32, i32, i64, i32, i32,
                              i32, p, p, p]
     lib.qvz_hist.restype = ctypes.c_int
@@ -150,11 +154,14 @@ def load(lineinfo: bool = False) -> ctypes.CDLL:
                                     i32, i64, i32, p, p, p]
     lib.qvz_kmeans_step.restype = ctypes.c_int
     lib.qvz_decode_lanes.argtypes = [p, p, p, p, i64, p, p, i32, i32, i32,
-                                     p, i32, p, p, p, p, p, p, p, i32, p,
+                                     p, i32, p, p, p, p, p, p, p, i32, p, p,
                                      p, p, i64, i32, p, i32, i32, p, p, p,
                                      p, i32, p, i32, i32, i32, i32, i32,
                                      i64, i64, i64, p]
     lib.qvz_decode_lanes.restype = ctypes.c_int
+    lib.qvz_cluster_prologue.argtypes = [p, p, p, p, i32, p, i32, i64, p,
+                                         p, p, i32, p]
+    lib.qvz_cluster_prologue.restype = ctypes.c_int
     lib.qvz_decoder_smem_limit.argtypes = []
     lib.qvz_decoder_smem_limit.restype = ctypes.c_int
     lib.qvz_microbench_issue.argtypes = [p, i32, i32, i32, p, p]

@@ -73,6 +73,15 @@
 // Only a corrupt stream raises them; the caller decodes such a lane again
 // on the host, so that the host decoder's error or output is the outcome.
 // Every rescale is decoded on the card.
+//
+// K5p (cluster_prologue_kernel) runs before K5, one thread a lane: it
+// decodes the cluster ids that open each lane (-c K > 1) with model 0, the
+// one model updated once a line, as the host's Decoder::step and
+// ModelBank::update (rescale included), writes them into the ids K5 reads
+// and the lane's (l, u, t, consumed bits) into K5's start states. A lane
+// whose prologue fails as the host's would (the tag left [l, u], or an id
+// at or past the cluster count) is flagged; K5 decodes no step of it and
+// carries the flag into its final state, so the host decodes it again.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -92,7 +101,7 @@ constexpr uint32_t kStep = 8;
 constexpr int kAlphabet = 72;
 constexpr int kOverrunBytes = 64;
 constexpr int kMaxLanesPerBlock = 32;
-constexpr int64_t kFlagBad = 1, kFlagOverrun = 4;
+constexpr int64_t kFlagBad = 1, kFlagOverrun = 4, kFlagCluster = 8;
 
 __device__ __forceinline__ uint64_t bswap64(uint64_t v) {
   const uint32_t lo = static_cast<uint32_t>(v);
@@ -203,7 +212,8 @@ __global__ void decode_lanes_kernel(
     const int2* __restrict__ mtab, const int32_t* __restrict__ col_model_off,
     const int32_t* __restrict__ init_counts,
     const int32_t* __restrict__ col_slots, const int32_t* __restrict__ symtab,
-    int S, const int64_t* __restrict__ state_in, uint8_t* __restrict__ out_t,
+    int S, const int64_t* __restrict__ state_in,
+    const int64_t* __restrict__ flags_in, uint8_t* __restrict__ out_t,
     int64_t* __restrict__ state_out, const int32_t* __restrict__ rbase,
     const int32_t* __restrict__ rsrc, const int32_t* __restrict__ roff,
     int2* __restrict__ rec, int rmax, uint16_t* __restrict__ scratch,
@@ -245,7 +255,10 @@ __global__ void decode_lanes_kernel(
   __syncthreads();
   if (tid < nl) {
     const int64_t lo = lane_off[w0 + tid];
-    const int len = static_cast<int>(lane_off[w0 + tid + 1] - lo);
+    // a lane that K5p flagged decodes no step
+    const int len = flags_in && flags_in[w0 + tid]
+                        ? 0
+                        : static_cast<int>(lane_off[w0 + tid + 1] - lo);
     lane_lo_s[tid] = lo;
     lane_len_s[tid] = len;
     atomicMax(&block_len, len);
@@ -442,7 +455,8 @@ __global__ void decode_lanes_kernel(
     state_out[w * 5 + 2] = t;
     state_out[w * 5 + 3] = bits;
     state_out[w * 5 + 4] = (bad ? kFlagBad : 0) |
-                           (overrun ? kFlagOverrun : 0);
+                           (overrun ? kFlagOverrun : 0) |
+                           (flags_in ? flags_in[w] : 0);
   }
 }
 
@@ -474,6 +488,98 @@ __global__ void text_rows_kernel(const uint8_t* __restrict__ out_t, int64_t n,
     if (row_stride > cols && blockIdx.y == 0 && threadIdx.x == 0)
       out[line * row_stride + cols] = '\n';
   }
+}
+
+// K5p. One thread a lane: its payload's first 22 bits are the tag of the
+// full interval; then, where card > 1, its lane_off[w + 1] - lane_off[w]
+// cluster ids, each a step of the host's Decoder::step over model 0 (the
+// tag check, the linear search cum x range < (t - l + 1) x total, the exact
+// bounds, the batched renormalisation) and its ModelBank::update. The ids
+// go to cl at the lane's lines, the lane's (l, u, t, consumed bits) to
+// states and its flag to flags: 0, kFlagBad where the tag left [l, u] at a
+// step's start, kFlagCluster where the search passed the model's last
+// count (an id at or past the cluster count); a flagged lane stops there.
+// With one cluster (card 1) no step runs and cl is null. The counts live
+// in shared memory, interleaved by lane (rescale.cuh):
+//   cnt  u32[card][blockDim.x]
+__global__ void cluster_prologue_kernel(
+    const uint64_t* __restrict__ payload, const int64_t* __restrict__ pay_off,
+    const int64_t* __restrict__ pay_len, const int64_t* __restrict__ lane_off,
+    int lanes, const int32_t* __restrict__ init_counts, int card,
+    uint32_t init_total, uint8_t* __restrict__ cl,
+    int64_t* __restrict__ states, int64_t* __restrict__ flags) {
+  extern __shared__ uint32_t cnt_s[];
+  const int tid = threadIdx.x;
+  const int stride = blockDim.x;
+  const int w = blockIdx.x * stride + tid;
+  if (w >= lanes) return;
+  uint32_t* c = cnt_s + tid;
+  qvz_rescale::load_counts(c, stride, init_counts, card);
+  uint32_t total = init_total;
+  BitReader br;
+  br.words = payload;
+  br.base = pay_off[w];
+  br.len = pay_len[w];
+  br.start(0);
+  uint32_t l = 0, u = kFull, t = br.getk(kArithM);
+  const int64_t lo = lane_off[w];
+  const int n = card > 1 ? static_cast<int>(lane_off[w + 1] - lo) : 0;
+  int64_t flag = 0;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    if (t < l || t > u) {
+      flag = kFlagBad;
+      break;
+    }
+    const uint64_t range = static_cast<uint64_t>(u) - l + 1u;
+    const uint64_t target = static_cast<uint64_t>(t - l + 1u) * total;
+    int x = 0;
+    uint32_t cx = c[0];
+    uint32_t cum = cx;
+#pragma unroll 1
+    while (static_cast<uint64_t>(cum) * range < target) {
+      if (++x == card) break;
+      cx = c[x * stride];
+      cum += cx;
+    }
+    if (x == card) {
+      flag = kFlagCluster;
+      break;
+    }
+    cl[lo + i] = static_cast<uint8_t>(x);
+    const double r = __drcp_rn(static_cast<double>(total));
+    u = l + exact_div(range * cum, total, r) - 1u;
+    l = l + exact_div(range * (cum - cx), total, r);
+    total = qvz_rescale::update_counts(c, stride, card, x, total);
+
+    // E1* then E3*, as K5's step (diff == 0 only where the tag has left
+    // [l, u]; the clamp keeps the shifts defined). l and u are taken to 22
+    // bits where E1* does not run too, as the host's step does: a bound
+    // past 22 bits follows only from a bank whose total is not its counts'
+    // sum, and then the host's outcome is kept.
+    const uint32_t diff = l ^ u;
+    if ((diff >> kMsbShift) == 0) {
+      const int k1 = min(__clz(diff << (32 - kArithM)), kArithM);
+      l = l << k1;
+      u = (u << k1) | ((1u << k1) - 1u);
+      t = ((t << k1) | br.getk(k1)) & kFull;
+    }
+    l &= kFull;
+    u &= kFull;
+    if ((l >> kSmsbShift) == 1u && (u >> kSmsbShift) == 2u) {
+      const uint32_t lx = l << (32 - kSmsbShift);
+      const uint32_t ux = u << (32 - kSmsbShift);
+      const int k3 = 1 + min(__clz(~lx | 1u), ux ? __clz(ux) : 32);
+      l = (l << k3) & kMsbClear;
+      u = (((u << k3) & kMsbClear) | kMsbBit) | ((1u << k3) - 1u);
+      t = (((t << k3) | br.getk(k3)) & kFull) ^ kMsbBit;
+    }
+  }
+  states[w * 4 + 0] = l;
+  states[w * 4 + 1] = u;
+  states[w * 4 + 2] = t;
+  states[w * 4 + 3] = br.consumed();
+  flags[w] = flag;
 }
 
 }  // namespace
@@ -508,7 +614,9 @@ extern "C" int qvz_decoder_smem_limit() {
 // mloc: (n_models,) int32 column-local model index; mtab: each column's
 // model records (slot base, cardinality << 20 | initial total) from
 // col_model_off[c]; init_counts, symtab: (cols, S) int32; state_in: (lanes,
-// 4) int64 (l, u, t, consumed bits); out_t: (cols, n) uint8 scratch; out:
+// 4) int64 (l, u, t, consumed bits); flags_in: (lanes,) int64, K5p's flags
+// (a flagged lane decodes nothing and keeps its flag), or null; out_t:
+// (cols, n) uint8 scratch; out:
 // (n, row_stride) uint8 text rows, row_stride >= cols; state_out: (lanes,
 // 5) int64 (l, u, t, consumed bits, flags). lpw lanes decode in each warp,
 // lpb lanes in each block (<= 32), lt steps a chunk, in `layout` 0, 1 or 2
@@ -526,7 +634,8 @@ extern "C" int qvz_decode_lanes(
     const int32_t* ptab, int ptab_w, const int32_t* qrtab,
     const int32_t* mloc, const int2* mtab, const int32_t* col_model_off,
     const int32_t* init_counts, const int32_t* col_slots,
-    const int32_t* symtab, int S, const int64_t* state_in, uint8_t* out_t,
+    const int32_t* symtab, int S, const int64_t* state_in,
+    const int64_t* flags_in, uint8_t* out_t,
     uint8_t* out, int64_t row_stride, int sym_add, int64_t* state_out,
     int layout, int rescale, const int32_t* rbase, const int32_t* rsrc,
     const int32_t* roff, int2* rec, int rmax, uint16_t* scratch, int lpw,
@@ -544,7 +653,8 @@ extern "C" int qvz_decode_lanes(
 #define QVZ_DECODE_ARGS                                                      \
   payload, pay_off, pay_len, draws_t, n, cl, lane_off, lanes, cols_run,      \
       ptab, ptab_w, qrtab, mloc, mtab, col_model_off, init_counts,           \
-      col_slots, symtab, S, state_in, out_t, state_out, rbase, rsrc, roff,   \
+      col_slots, symtab, S, state_in, flags_in, out_t, state_out, rbase,     \
+      rsrc, roff,                                                            \
       rec, rmax, scratch, lpw, lpb, lt, s_pad, m_pad
 #define QVZ_DECODE(L, R) \
   launch_decode<L, R>(blocks, 32 * warps, smem_bytes, st, QVZ_DECODE_ARGS)
@@ -565,5 +675,32 @@ extern "C" int qvz_decode_lanes(
         out_t, n, line_lo, line_hi, cols_run, cols, out, row_stride,
         sym_add);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K5p on `stream`: payload, pay_off and pay_len as for K5;
+// lane_off: (lanes + 1,) int64 line offsets into cl; init_counts: (card,)
+// int32, model 0's counts at the lanes' start (card the cluster count,
+// 1..256), init_total their total; cl: (n,) uint8 cluster ids out, null
+// where card is 1; states: (lanes, 4) int64 (l, u, t, consumed bits) out;
+// flags: (lanes,) int64 out. lpb lanes a block (<= 32). Returns
+// cudaGetLastError() of the launch.
+extern "C" int qvz_cluster_prologue(const uint64_t* payload,
+                                    const int64_t* pay_off,
+                                    const int64_t* pay_len,
+                                    const int64_t* lane_off, int lanes,
+                                    const int32_t* init_counts, int card,
+                                    int64_t init_total, uint8_t* cl,
+                                    int64_t* states, int64_t* flags, int lpb,
+                                    void* stream) {
+  if (lanes <= 0) return 0;
+  if (lpb < 1 || lpb > kMaxLanesPerBlock || card < 1 || card > 256 ||
+      init_total < 1 || init_total > kArithR || (card > 1 && cl == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (lanes + lpb - 1) / lpb;
+  cluster_prologue_kernel<<<blocks, lpb, static_cast<size_t>(card) * lpb * 4,
+                            static_cast<cudaStream_t>(stream)>>>(
+      payload, pay_off, pay_len, lane_off, lanes, init_counts, card,
+      static_cast<uint32_t>(init_total), cl, states, flags);
   return static_cast<int>(cudaGetLastError());
 }

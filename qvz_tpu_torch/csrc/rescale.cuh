@@ -23,6 +23,13 @@
 // 8 < 65,536 uses in a lane; a model at risk rescales before its total
 // passes 2^19, so before its uses since the column start or the last
 // rescale reach 65,536.
+//
+// The cluster-id model (model 0), which K2s (coder.cu) and K5p
+// (decoder.cu) run one thread a lane, is updated once a line and keeps
+// its full counts instead: card u32 a lane in shared memory, interleaved
+// by lane (count k of the thread's lane at c[k x stride], stride the
+// block's threads, so a warp's loads fall on distinct banks), loaded by
+// load_counts and updated by update_counts.
 
 #pragma once
 
@@ -74,6 +81,36 @@ __device__ __forceinline__ void fill_records(
                                kTotalMask),
                            0);
   }
+}
+
+// Model 0's initial counts into a lane's interleaved counts.
+__device__ __forceinline__ void load_counts(uint32_t* c, int stride,
+                                            const int32_t* init, int card) {
+#pragma unroll 1
+  for (int k = 0; k < card; ++k)
+    c[k * stride] = static_cast<uint32_t>(__ldg(init + k));
+}
+
+// ModelBank::update of a lane's interleaved counts after a step of symbol
+// x under `total`: c[x] += 8, and where total + 8 passes 2^19 every
+// nonzero count becomes (c >> 1) + 1. Returns the new total.
+__device__ __forceinline__ uint32_t update_counts(uint32_t* c, int stride,
+                                                  int card, int x,
+                                                  uint32_t total) {
+  c[x * stride] += kStep;
+  uint32_t n = total + kStep;
+  if (n > kLimit) {
+    n = 0;
+#pragma unroll 1
+    for (int k = 0; k < card; ++k) {
+      const uint32_t v = c[k * stride];
+      if (v) {
+        c[k * stride] = (v >> 1) + 1u;
+        n += (v >> 1) + 1u;
+      }
+    }
+  }
+  return n;
 }
 
 }  // namespace qvz_rescale

@@ -2050,11 +2050,11 @@ void qvz_bank_from_stream(void* tables, const uint32_t* model_t,
   bank.dump(out_bank);
 }
 
-// Exact single-model replay (see qvz_rt.h): the device coder's pass-1
-// triple computation assumes no mid-shard rescale (exactly checked,
-// rare for column models at device shard sizes) — but the cluster-id
-// model sees one update per LINE and does rescale; its triples are
-// replayed here at memory speed and shipped to the device instead.
+// Exact single-model replay (see qvz_rt.h): one model's (cum_lo, cum_hi,
+// total) triple for each symbol, rescale included. For the cluster-id
+// model, updated once a line, these are the cluster-id segment's
+// triples, which the device coder's K2s (csrc/coder.cu) makes on the
+// card; this replay is its host oracle.
 // Reference semantics: cum scan arith.c:40-43, update qv_stream.c:9-25.
 void qvz_replay_model(const uint32_t* init_counts, uint32_t card,
                       uint32_t init_total, const uint8_t* syms,
@@ -2181,14 +2181,13 @@ int32_t qvz_decode_colmajor(void* tables, const uint8_t* payload,
   return 0;
 }
 
-// Cluster-segment prologue for the DEVICE lane decoder: decodes the
-// n_lines cluster ids that open a column-major shard (model 0 — the
-// one model the device replay cannot carry, since it legitimately
-// rescales at one update per line) and exports the exact coder state
-// where the device scan takes over: state_out = {l, u, t, consumed
-// bits}. Model 0 is never touched again in column-major order
-// (qvz_decode_colmajor decodes it only in this prefix), so the device
-// pass needs no model-0 counts.
+// Cluster-segment prologue: decodes the n_lines cluster ids that open a
+// column-major shard (model 0, updated once a line, so it rescales) and
+// exports the exact coder state where the lane decoder takes over:
+// state_out = {l, u, t, consumed bits}. Model 0 is never touched again
+// in column-major order (qvz_decode_colmajor decodes it only in this
+// prefix). The device decode's K5p (csrc/decoder.cu) does the same on
+// the card; this is its host oracle.
 int32_t qvz_decode_cluster_prologue(void* tables, const uint8_t* payload,
                                     uint64_t payload_len, uint64_t n_lines,
                                     const uint32_t* init_bank,

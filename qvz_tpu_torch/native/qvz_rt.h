@@ -98,9 +98,9 @@ int32_t qvz_decode_colmajor(void* tables, const uint8_t* payload,
                             uint8_t* cluster_out,
                             const uint8_t* draws_t_in);
 
-// Cluster-segment prologue for the device lane decoder: decodes the
-// per-shard cluster ids (model 0) and exports the coder state where
-// the device scan resumes: state_out = {l, u, t, consumed bits}.
+// Cluster-segment prologue: decodes the per-shard cluster ids (model 0)
+// and exports the coder state where the lane decoder resumes: state_out
+// = {l, u, t, consumed bits}. The host oracle of the device's K5p.
 int32_t qvz_decode_cluster_prologue(void* tables, const uint8_t* payload,
                                     uint64_t payload_len, uint64_t n_lines,
                                     const uint32_t* init_bank,
@@ -116,9 +116,8 @@ void qvz_bank_from_stream(void* tables, const uint32_t* model_t,
 
 // Exact adaptive-model replay for ONE model: per-occurrence
 // (cum_lo, cum_hi, total) triples with the full update semantics
-// (counts += 8, halve+1 rescale past r — qv_stream.c:9-25). Host-side
-// feeder for the device coder's cluster-id segment, where rescales CAN
-// occur (the device pass handles only the rescale-free column models).
+// (counts += 8, halve+1 rescale past r — qv_stream.c:9-25). The host
+// oracle of the device coder's K2s, the cluster-id segment's triples.
 void qvz_replay_model(const uint32_t* init_counts, uint32_t card,
                       uint32_t init_total, const uint8_t* syms,
                       uint64_t n, uint32_t* out_triples);

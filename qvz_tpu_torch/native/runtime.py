@@ -42,7 +42,8 @@ def replay_model(init_counts: np.ndarray, init_total: int,
                  syms: np.ndarray) -> np.ndarray:
     """Exact per-occurrence (cum_lo, cum_hi, total) triples for ONE
     adaptive model, with full update semantics incl. rescale
-    (qv_stream.c:9-25). Feeds the device coder's cluster-id segment."""
+    (qv_stream.c:9-25). The host oracle of K2s, the device coder's
+    cluster-id segment."""
     lib = native.load()
     ic = np.ascontiguousarray(init_counts, dtype=np.uint32)
     s = np.ascontiguousarray(syms, dtype=np.uint8)
@@ -475,9 +476,9 @@ def decode_cluster_prologue(tables: Tables, payload, n_lines: int,
                             init_bank: np.ndarray | None = None):
     """Decode the cluster-id segment opening a column-major shard and
     return (cluster_ids u8 (n,), l, u, t, consumed_bits) — the exact
-    coder state where the device lane decoder resumes. Model 0 is never
-    touched again in column-major order, so its counts need not be
-    exported."""
+    coder state where the lane decoder resumes. Model 0 is never touched
+    again in column-major order, so its counts need not be exported. The
+    host oracle of K5p, the device decode's prologue."""
     lib = native.load()
     pay = np.frombuffer(payload, dtype=np.uint8)
     cl = np.empty(max(n_lines, 1), dtype=np.uint8)

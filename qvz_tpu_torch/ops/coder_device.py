@@ -34,9 +34,11 @@ are copied here: the per-column slot layout of ``LanePlan`` and
 ``finish_payload``.
 
 With more than one cluster (-c K > 1), each lane first codes its lines'
-cluster ids, one step per line before column 0, with explicit triples
-(cum_lo, cum_hi, total) that the caller replays exactly on the host
-(``rt.replay_model``): the cluster-id segment.
+cluster ids, one step per line before column 0: the cluster-id segment.
+K2s (``segment_triples``, ``csrc/coder.cu``) makes its triples on the
+device from the lanes' ids, one thread a lane replaying the cluster-id
+model exactly as the host's ``rt.replay_model`` (rescale included); K2b
+codes them as one column. Plain version ``segment_triples_reference``.
 
 Raw lane output, shared by K2 and its plain version:
   words   (W, max_words) int32  the lane's packed 32-bit words (u32 bits)
@@ -209,6 +211,10 @@ def plan_to_torch(plan: LanePlan, device) -> dict:
         "mloc": t(plan.mloc),
         "mtab": t(plan.mtab),
         "col_model_off": t(plan.col_model_off),
+        # the cluster-id model's (model 0's) counts and total at a lane's
+        # start, for K2s and K5p
+        "cluster_init": t(plan.cluster_init_counts),
+        "cluster_total": int(plan.cluster_init_total),
     }
 
 
@@ -299,15 +305,88 @@ def pack_triples(cum_lo, cum_hi, total):
     return cum_lo | (cum_hi << FIELD_BITS) | (total << (2 * FIELD_BITS))
 
 
-def segment_triples(cluster_triples: np.ndarray, lane_counts,
-                    device) -> torch.Tensor:
-    """The cluster-id segment, (W, L, 3) uint32 triples, as one column of
-    K2b's step-major (L, W) int64 triples; 0 past a ragged lane's end."""
-    ct = cluster_triples.astype(np.int64)
-    valid = np.arange(ct.shape[1])[None, :] < np.asarray(
-        lane_counts, dtype=np.int64)[:, None]
-    t = np.where(valid, pack_triples(ct[..., 0], ct[..., 1], ct[..., 2]), 0)
-    return torch.from_numpy(np.ascontiguousarray(t.T)).to(device)
+# K2s's lanes a block (one thread a lane; model 0's counts, at most 256
+# u32 a lane, in shared memory)
+SEGMENT_LANES_PER_BLOCK = 32
+
+
+def segment_triples_reference(plan_t: dict, clusters: torch.Tensor,
+                              lane_counts, base: int) -> torch.Tensor:
+    """Plain PyTorch version of K2s: the cluster-id segment of lane w, the
+    ids clusters[base + sum(lane_counts[:w]) ...] for lane_counts[w]
+    lines, as the packed triples of the cluster-id model (model 0) from
+    the plan's cluster_init counts and cluster_total, each step updating
+    them as the host's ModelBank::update (+8, and past 2^19 every nonzero
+    count (c >> 1) + 1): ``rt.replay_model``'s triples. Vectorised over
+    lanes in int64; returns K2b's step-major (L, W) int64 triples, 0 past
+    a ragged lane's end (L the longest lane)."""
+    dev = clusters.device
+    W = len(lane_counts)
+    L = int(max(lane_counts)) if W else 0
+    offs = _lane_offsets(lane_counts, base, dev)
+    c = plan_t["cluster_init"].to(dev).long().expand(W, -1).clone()
+    card = c.shape[1]
+    total = torch.full((W,), plan_t["cluster_total"], dtype=torch.long,
+                       device=dev)
+    lens = offs[1:] - offs[:-1]
+    ar = torch.arange(card, device=dev)
+    ar_w = torch.arange(W, device=dev)
+    out = torch.zeros((L, W), dtype=torch.long, device=dev)
+    for j in range(L):
+        v = j < lens
+        x = torch.where(v, clusters[(offs[:-1] + j).clamp(
+            max=clusters.numel() - 1)].long(), 0)
+        cum = (c * (ar < x[:, None])).sum(1)
+        cx = c[ar_w, x]
+        out[j] = torch.where(v, pack_triples(cum, cum + cx, total), 0)
+        c[ar_w, x] += STEP * v
+        n = total + STEP * v
+        resc = v & (n > ARITH_R)
+        if bool(resc.any()):
+            h = torch.where(c != 0, (c >> 1) + 1, 0)
+            c = torch.where(resc[:, None], h, c)
+            n = torch.where(resc, h.sum(1), n)
+        total = n
+    return out
+
+
+def segment_triples(plan_t: dict, clusters: torch.Tensor, lane_counts,
+                    base: int) -> torch.Tensor:
+    """K2s: the cluster-id segment's triples as ``segment_triples_reference``
+    returns them, from the (N,) uint8 cluster ids (each below the plan's
+    cluster count) on their device. CPU tensors take the plain version;
+    CUDA tensors launch K2s (csrc/coder.cu), one thread a lane, or
+    raise."""
+    _check_clusters(plan_t, clusters, lane_counts, base)
+    dev = clusters.device
+    if dev.type == "cpu":
+        return segment_triples_reference(plan_t, clusters, lane_counts, base)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _build.load()
+    W = len(lane_counts)
+    L = int(max(lane_counts)) if W else 0
+    offs = _lane_offsets(lane_counts, base, dev)
+    trip = torch.empty((L, W), dtype=torch.int64, device=dev)
+    init = plan_t["cluster_init"]
+    _build.launch("coder_segment", "cluster-id segment kernel", dev,
+                  lib.qvz_coder_segment, clusters.contiguous().data_ptr(),
+                  offs.data_ptr(), W, L, init.data_ptr(), init.numel(),
+                  plan_t["cluster_total"], trip.data_ptr(),
+                  SEGMENT_LANES_PER_BLOCK)
+    return trip
+
+
+def _check_clusters(plan_t, clusters, lane_counts, base) -> None:
+    if clusters.dtype != torch.uint8 or clusters.dim() != 1:
+        raise ValueError("clusters must be (N,) uint8 cluster ids")
+    if base < 0 or base + int(np.sum(lane_counts)) > clusters.numel():
+        raise ValueError("clusters: lanes run past the cluster ids")
+    if plan_t["cluster_init"].numel() < 2:
+        raise ValueError("the plan has one cluster: clusters have no "
+                         "segment to code")
+    if plan_t["cluster_init"].device != clusters.device:
+        raise ValueError("clusters and plan must share one device")
 
 
 def chunk_columns(cols: int, lanes: int, lmax: int, rec_max: int = 0) -> int:
@@ -484,27 +563,28 @@ def chain_reference(trip: torch.Tensor, ncols: int, lane_counts,
 
 def encode_lanes_reference(plan_t: dict, mid: torch.Tensor,
                            qs: torch.Tensor, lane_counts, base: int,
-                           cluster_triples: np.ndarray | None = None):
+                           clusters: torch.Tensor | None = None):
     """Plain PyTorch version of K2: the cluster-id segment first when
-    cluster_triples is given, then ``triples_reference`` and
-    ``chain_reference`` over chunks of ``chunk_columns`` columns, as
-    ``code_lanes`` launches K2a and K2b. Returns the raw lane output
-    (words, n_words, carry) described in the module docstring."""
-    return _compose(triples_reference, chain_reference, plan_t, mid, qs,
-                    lane_counts, base, cluster_triples,
-                    start_raw(len(lane_counts), mid.device))
+    clusters is given (``segment_triples_reference``, then its chain),
+    then ``triples_reference`` and ``chain_reference`` over chunks of
+    ``chunk_columns`` columns, as ``code_lanes`` launches K2s, K2a and
+    K2b. Returns the raw lane output (words, n_words, carry) described in
+    the module docstring."""
+    return _compose(segment_triples_reference, triples_reference,
+                    chain_reference, plan_t, mid, qs, lane_counts, base,
+                    clusters, start_raw(len(lane_counts), mid.device))
 
 
-def _compose(triples_fn, chain_fn, plan_t, mid, qs, lane_counts, base,
-             cluster_triples, raw):
-    """K2 from its two parts: the segment's chain, then each chunk's
-    triples and chain."""
+def _compose(segment_fn, triples_fn, chain_fn, plan_t, mid, qs, lane_counts,
+             base, clusters, raw):
+    """K2 from its parts: the segment's triples and chain, then each
+    chunk's triples and chain."""
     cols = mid.shape[0]
     W = len(lane_counts)
     L = int(max(lane_counts)) if W else 0
-    if cluster_triples is not None:
-        raw = chain_fn(segment_triples(cluster_triples, lane_counts,
-                                       mid.device), 1, lane_counts, raw)
+    if clusters is not None:
+        raw = chain_fn(segment_fn(plan_t, clusters, lane_counts, base), 1,
+                       lane_counts, raw)
     k = chunk_columns(cols, W, L, risk_tables(plan_t, L)["rec_max"])
     for c0 in range(0, cols, k):
         c1 = min(cols, c0 + k)
@@ -513,14 +593,12 @@ def _compose(triples_fn, chain_fn, plan_t, mid, qs, lane_counts, base,
     return raw
 
 
-def _check(plan_t, mid, qs, lane_counts, base, cluster_triples):
-    if cluster_triples is not None:
-        want = (len(lane_counts), int(max(lane_counts)), 3)
-        if cluster_triples.dtype != np.uint32 \
-                or cluster_triples.shape != want:
-            raise ValueError(f"cluster_triples must be {want} uint32")
-        if cluster_triples.size and int(cluster_triples.max()) > FIELD_MASK:
-            raise ValueError("cluster_triples must be below 2^20")
+def _check(plan_t, mid, qs, lane_counts, base, clusters):
+    if clusters is not None:
+        _check_clusters(plan_t, clusters, lane_counts, base)
+        if clusters.numel() != mid.shape[-1]:
+            raise ValueError(f"clusters must be ({mid.shape[-1]},), one id "
+                             "a line of the quantize outputs")
     if mid.dtype != torch.int32 or qs.dtype != torch.int32:
         raise TypeError("mid and qs must be int32")
     if mid.dim() != 2 or qs.shape != mid.shape:
@@ -600,29 +678,29 @@ def card_layout(plan_t: dict, lmax: int) -> int:
 
 
 def code_lanes(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
-               lane_counts, base: int,
-               cluster_triples: np.ndarray | None = None):
+               lane_counts, base: int, clusters: torch.Tensor | None = None):
     """Code lane w = lines base + sum(lane_counts[:w]) onwards, for
     lane_counts[w] lines, from the (cols, N) int32 quantize outputs;
-    cluster_triples, (W, max lane count, 3) uint32 or None, are the
-    lanes' cluster-id steps. Returns the raw lane output (words, n_words,
-    carry). CPU tensors take the plain version; CUDA tensors launch K2a
-    and K2b (csrc/coder.cu) over chunks of columns, K2a in the layout
+    clusters, the (N,) uint8 cluster ids of those lines on their device,
+    or None with one cluster. Returns the raw lane output (words,
+    n_words, carry). CPU tensors take the plain version; CUDA tensors
+    launch K2s and K2b for the cluster-id segment, then K2a and K2b
+    (csrc/coder.cu) over chunks of columns, K2a in the layout
     ``triples_shape`` picks for the card (every plan has one), or
     raise."""
-    _check(plan_t, mid, qs, lane_counts, base, cluster_triples)
+    _check(plan_t, mid, qs, lane_counts, base, clusters)
     dev = mid.device
     W = len(lane_counts)
     if dev.type == "cpu":
         return encode_lanes_reference(plan_t, mid, qs, lane_counts, base,
-                                      cluster_triples)
+                                      clusters)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     L = int(max(lane_counts)) if W else 0
-    max_steps = (mid.shape[0] + (cluster_triples is not None)) * L
+    max_steps = (mid.shape[0] + (clusters is not None)) * L
     max_words = -(-max_steps * BITS_PER_STEP_BOUND // 32) + 2
-    return _compose(triples, chain, plan_t, mid.contiguous(),
-                    qs.contiguous(), lane_counts, base, cluster_triples,
+    return _compose(segment_triples, triples, chain, plan_t, mid.contiguous(),
+                    qs.contiguous(), lane_counts, base, clusters,
                     start_raw(W, dev, max_words))
 
 
@@ -794,14 +872,14 @@ def finish_lanes(raw):
 
 def encode_lanes_raw(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
                      lane_counts, base: int,
-                     cluster_triples: np.ndarray | None = None):
+                     clusters: torch.Tensor | None = None):
     """(payloads, flags) for the lanes of the (cols, N) quantize outputs:
-    the contract of ``qvz_tpu.ops.coder_device.encode_lanes_raw``. Lane w
-    covers lines base + sum(lane_counts[:w]) onwards; cluster_triples
-    (W, max lane count, 3) uint32 are its cluster-id steps, None with one
-    cluster. Every lane is coded, so no flag is set (``qvz_tpu`` flags a
-    lane whose model would rescale and leaves it to the host).
-    ``code_lanes`` then ``finish_lanes``."""
+    the contract of ``qvz_tpu.ops.coder_device.encode_lanes_raw``, but
+    with the lines' (N,) uint8 cluster ids (None with one cluster) where
+    qvz_tpu takes the host's cluster-id triples. Lane w covers lines base
+    + sum(lane_counts[:w]) onwards. Every lane is coded, so no flag is
+    set (``qvz_tpu`` flags a lane whose model would rescale and leaves it
+    to the host). ``code_lanes`` then ``finish_lanes``."""
     payloads, flags, _ = finish_lanes(
-        code_lanes(plan_t, mid, qs, lane_counts, base, cluster_triples))
+        code_lanes(plan_t, mid, qs, lane_counts, base, clusters))
     return payloads, flags

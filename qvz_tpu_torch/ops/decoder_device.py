@@ -20,13 +20,24 @@ neither the interval nor a bit. The last symbol of a shard runs as a
 normal step: its extra renormalisation only changes state that is thrown
 away.
 
+Before K5, K5p (``cluster_prologue``, plain version
+``cluster_prologue_reference``) starts every lane on the device, one
+thread a lane: with more than one cluster it decodes the lane's cluster
+ids with the cluster-id model (model 0, updated once a line, rescale
+included) as the host's ``rt.decode_cluster_prologue`` does, into the ids
+K5 reads, and writes the state where K5 resumes; with one cluster that
+state is the full interval and the payload's first 22 bits.
+
 Flags (bits of a lane's flag word), as ``qvz_tpu``'s decoder: 1 bad (the
 tag left [l, u], or a context is unreachable), 4 overrun (the lane
 consumed more than 64 bytes past its payload: the host
-``BitReader::overrun`` rule, on consumed bits). Only a corrupt stream
-sets them; such a lane is decoded again on the host, whose error or
-output is the outcome. ``qvz_tpu``'s decoder also flags a lane that
-reaches a rescale (2); K5 decodes it.
+``BitReader::overrun`` rule, on consumed bits), and K5p's 1 (the tag left
+[l, u] in the prologue) and 8 (a cluster id at or past the cluster
+count), where the host's prologue fails with -3 and -1; K5 decodes no
+step of a lane K5p flagged. Only a corrupt stream sets them; such a lane
+is decoded again on the host, whose error or output is the outcome.
+``qvz_tpu``'s decoder also flags a lane that reaches a rescale (2); K5
+decodes it.
 
 Lane w decodes lines base + sum(lane_counts[:w]) onwards, for
 lane_counts[w] lines, of the (cols, N) draws and (N,) cluster ids; its
@@ -64,7 +75,7 @@ from qvz_tpu_torch.ops.coder_device import (ARITH_M, ARITH_R, FULL,
                                             _uses_scratch, plan_to_torch,
                                             risk_tables)
 
-FLAG_BAD, FLAG_OVERRUN = 1, 4
+FLAG_BAD, FLAG_OVERRUN, FLAG_CLUSTER = 1, 4, 8
 OVERRUN_BYTES = 64       # the host BitReader's margin past the payload
 A = 72                   # no model has more symbols than the alphabet
 # K5's launch shape: lanes decoded in each warp, and at most 32 lanes a
@@ -72,6 +83,7 @@ A = 72                   # no model has more symbols than the alphabet
 LANES_PER_WARP = 2
 _LANES_PER_BLOCK = 32
 _CHUNK_CAP = 2048        # K5's steps a chunk, at most
+PROLOGUE_LANES_PER_BLOCK = 32   # K5p's lanes (threads) a block
 
 
 class DecodePlan:
@@ -162,11 +174,173 @@ def start_state(payload) -> tuple:
     return 0, FULL, w0 >> (32 - ARITH_M), ARITH_M
 
 
+def _bit_source(pays: LanePayloads, dev):
+    """getk(B, k): each lane's next k (0..48) bits at bit position B (a
+    (W,) tensor), MSB first, and B + k; zero past a payload's end (the
+    host BitReader's zero fill)."""
+    src = torch.cat([pays.flat, pays.flat.new_zeros(1)]).long()
+    j = torch.arange(int(pays.lens.max(initial=0)) + 4, device=dev)
+    pm = torch.where(j[None] < pays.len[:, None],
+                     src[(pays.off[:, None] + j).clamp(max=src.numel() - 1)],
+                     0)
+    ar7 = torch.arange(7, device=dev)
+    shifts = torch.arange(48, -1, -8, device=dev)
+
+    def getk(B, k):
+        idx = ((B >> 3)[:, None] + ar7).clamp(max=pm.shape[1] - 1)
+        word = (pm.gather(1, idx) << shifts).sum(1)
+        return (word >> (56 - (B & 7) - k)) & ((1 << k) - 1), B + k
+
+    return getk
+
+
+def _renormalise(l, u, t, B, upd, getk, wrap: bool = False):
+    """The batched E1*/E3* renormalisation of the lanes where `upd`, the
+    tag taking k1 stream bits, then k3 and one final MSB flip (k1 = 0 and
+    k3 = 0 where a batch does not run); both batches' shifts follow from
+    (l, u) alone, so one read serves them. With `wrap`, l and u are taken
+    to 22 bits after the E1* batch where it does not run too, as the
+    host's Decoder::step does (a bound past 22 bits follows only from a
+    bank whose total is not its counts' sum)."""
+    diff = l ^ u
+    e1 = upd & ((diff >> MSB_SHIFT) == 0)
+    k1 = torch.where(e1, ARITH_M - _bit_length(diff), 0)
+    l = torch.where(e1 | wrap, (l << k1) & FULL, l)
+    u = torch.where(e1 | wrap, ((u << k1) | ((1 << k1) - 1)) & FULL, u)
+
+    e3 = upd & ((l >> SMSB_SHIFT) == 1) & ((u >> SMSB_SHIFT) == 2)
+    lx = (l << (32 - SMSB_SHIFT)) & U32
+    ux = (u << (32 - SMSB_SHIFT)) & U32
+    lrun = 32 - _bit_length((~lx | 1) & U32)
+    zrun = 32 - _bit_length(ux)
+    k3 = torch.where(e3, 1 + torch.minimum(lrun, zrun), 0)
+    l = torch.where(e3, (l << k3) & MSB_CLEAR, l)
+    u = torch.where(e3, ((u << k3) & MSB_CLEAR) | MSB_BIT
+                    | ((1 << k3) - 1), u)
+
+    v, B = getk(B, k1 + k3)
+    t = ((t << k1) | (v >> k3)) & FULL
+    t = (((t << k3) | (v & ((1 << k3) - 1))) & FULL) \
+        ^ torch.where(e3, MSB_BIT, 0)
+    return l, u, t, B
+
+
+def cluster_prologue_reference(dplan_t: dict, pays: LanePayloads,
+                               lane_counts):
+    """Plain PyTorch version of K5p, vectorised over lanes in int64: each
+    lane's start at bit 0 (the full interval, the first 22 bits), then,
+    with more than one cluster, its lane_counts[w] cluster ids decoded
+    with the cluster-id model from the plan's cluster_init counts and
+    cluster_total, each step the host's Decoder::step and
+    ModelBank::update (``rt.decode_cluster_prologue``). Returns (cl, the
+    (N,) uint8 ids, lane w's at lines sum(lane_counts[:w]) onwards (N the
+    lanes' lines), None with one cluster; states, (W, 4) int64 (l, u,
+    t, consumed bits) where K5 resumes; flags, (W,) int64: FLAG_BAD where
+    the tag left [l, u] at a step's start, FLAG_CLUSTER where an id would
+    pass the cluster count, 0 else). A flagged lane stops at that step: no
+    later id of it is written (0) and its state stays."""
+    dev = pays.flat.device
+    W = len(lane_counts)
+    c = dplan_t["cluster_init"].to(dev).long().expand(W, -1).clone()
+    card = c.shape[1]
+    getk = _bit_source(pays, dev)
+    zero = torch.zeros(W, dtype=torch.long, device=dev)
+    t, B = getk(zero, ARITH_M)
+    l, u = zero.clone(), torch.full((W,), FULL, dtype=torch.long,
+                                    device=dev)
+    flags = zero.clone()
+    offs = _lane_offsets(lane_counts, 0, dev)
+    lens = offs[1:] - offs[:-1]
+    if card < 2:
+        return None, torch.stack([l, u, t, B], 1), flags
+    cl = torch.zeros(int(np.sum(lane_counts)), dtype=torch.uint8,
+                     device=dev)
+    total = torch.full((W,), dplan_t["cluster_total"], dtype=torch.long,
+                       device=dev)
+    ar_w = torch.arange(W, device=dev)
+    for i in range(int(lens.max()) if W else 0):
+        live = (i < lens) & (flags == 0)
+        bad = live & ((t < l) | (t > u))
+        flags |= bad.long() * FLAG_BAD
+        live &= ~bad
+        rng = u - l + 1
+        cum = c.cumsum(1)
+        # the first x with cum_x * range >= (t - l + 1) * total; card where
+        # there is none (the host's search runs past model 0)
+        x = (cum * rng[:, None] < ((t - l + 1) * total)[:, None]).sum(1)
+        over = live & (x >= card)
+        flags |= over.long() * FLAG_CLUSTER
+        live &= ~over
+        x = x.clamp(max=card - 1)
+        cl[(offs[:-1] + i)[live]] = x[live].to(torch.uint8)
+        cum_hi = cum[ar_w, x]
+        cum_lo = cum_hi - c[ar_w, x]
+        tot = total.clamp(min=1)
+        nu = (l + rng * cum_hi // tot - 1) & U32
+        nl = (l + rng * cum_lo // tot) & U32
+        c[ar_w, x] += STEP * live
+        n = total + STEP
+        resc = live & (n > ARITH_R)
+        if bool(resc.any()):
+            # every nonzero count becomes (c >> 1) + 1, the total their sum
+            h = torch.where(c != 0, (c >> 1) + 1, 0)
+            c = torch.where(resc[:, None], h, c)
+            n = torch.where(resc, h.sum(1), n)
+        total = torch.where(live, n, total)
+        l2, u2, t2, B2 = _renormalise(nl, nu, t, B, live, getk, wrap=True)
+        l, u = torch.where(live, l2, l), torch.where(live, u2, u)
+        t, B = torch.where(live, t2, t), torch.where(live, B2, B)
+    return cl, torch.stack([l, u, t, B], 1), flags
+
+
+def cluster_prologue(dplan_t: dict, pays: LanePayloads, lane_counts):
+    """K5p: every lane's start, as ``cluster_prologue_reference`` returns
+    it (cl, states, flags). CPU tensors take the plain version; CUDA
+    tensors launch K5p (csrc/decoder.cu), one thread a lane, or raise."""
+    W = len(lane_counts)
+    if pays.off.shape != (W,) or len(pays.lens) != W:
+        raise ValueError(f"payloads must be {W} lanes")
+    dev = pays.flat.device
+    if dev.type == "cpu":
+        return cluster_prologue_reference(dplan_t, pays, lane_counts)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _build.load()
+    init = dplan_t["cluster_init"]
+    card = init.numel()
+    offs = _lane_offsets(lane_counts, 0, dev)
+    cl = (torch.zeros(int(np.sum(lane_counts)), dtype=torch.uint8,
+                      device=dev) if card > 1 else None)
+    states = torch.empty((W, 4), dtype=torch.int64, device=dev)
+    flags = torch.empty(W, dtype=torch.int64, device=dev)
+    _build.launch(
+        "cluster_prologue", "cluster-id prologue kernel", dev,
+        lib.qvz_cluster_prologue, _packed_words(pays).data_ptr(),
+        pays.off.data_ptr(), pays.len.data_ptr(), offs.data_ptr(), W,
+        init.data_ptr(), card, dplan_t["cluster_total"],
+        cl.data_ptr() if cl is not None else None, states.data_ptr(),
+        flags.data_ptr(), PROLOGUE_LANES_PER_BLOCK)
+    return cl, states, flags
+
+
+def _packed_words(pays: LanePayloads) -> torch.Tensor:
+    """The packed payloads as the kernels read them: 8-byte aligned, in
+    whole words and one more (a copy where ``pays.flat`` is not)."""
+    flat = pays.flat
+    padded = _padded_len(int(pays.lens.sum()))
+    if flat.data_ptr() % 8 or flat.numel() < padded:
+        flat = torch.zeros(padded, dtype=torch.uint8, device=flat.device)
+        flat[: pays.flat.numel()] = pays.flat
+    return flat
+
+
 def decode_lanes_reference(dplan_t: dict, pays: LanePayloads,
                            draws_t: torch.Tensor, cl: torch.Tensor | None,
                            lane_counts, base: int, states: torch.Tensor,
                            out: torch.Tensor, sym_add: int = 0,
-                           cols_run: int | None = None) -> torch.Tensor:
+                           cols_run: int | None = None,
+                           start_flags: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Plain PyTorch version of K5: the per-step loop vectorised over
     lanes, in int64. Arguments and result as ``decode_lanes_t``."""
     dev = draws_t.device
@@ -181,26 +355,14 @@ def decode_lanes_reference(dplan_t: dict, pays: LanePayloads,
     ptab = dplan_t["ptab"].long()
     qrtab = dplan_t["qrtab"].long()
     symtab = dplan_t["symtab"].long()
-
-    # each lane's payload as a zero-padded row, so reads past its end
-    # give zero bits (the host BitReader's zero fill)
-    src = torch.cat([pays.flat, pays.flat.new_zeros(1)]).long()
-    j = torch.arange(int(pays.lens.max(initial=0)) + 4, device=dev)
-    pm = torch.where(j[None] < pays.len[:, None],
-                     src[(pays.off[:, None] + j).clamp(max=src.numel() - 1)],
-                     0)
-    ar7 = torch.arange(7, device=dev)
-    shifts = torch.arange(48, -1, -8, device=dev)
-
-    def getk(B, k):
-        """The next k (0..48) bits at bit position B, MSB first."""
-        idx = ((B >> 3)[:, None] + ar7).clamp(max=pm.shape[1] - 1)
-        word = (pm.gather(1, idx) << shifts).sum(1)
-        return (word >> (56 - (B & 7) - k)) & ((1 << k) - 1), B + k
+    getk = _bit_source(pays, dev)
 
     offs = _lane_offsets(lane_counts, base, dev)
+    lens = offs[1:] - offs[:-1]
+    if start_flags is not None:    # a lane K5p flagged decodes no step
+        lens = torch.where(start_flags != 0, 0, lens)
     i_ar = torch.arange(L, device=dev)
-    lvalid = i_ar[None] < (offs[1:] - offs[:-1])[:, None]          # (W, L)
+    lvalid = i_ar[None] < lens[:, None]                             # (W, L)
     line = torch.where(lvalid, offs[:-1, None] + i_ar, offs[:-1, None])
     line = line.clamp(max=max(draws_t.shape[1] - 1, 0))
     clw = cl[line].long() if cl is not None else torch.zeros_like(line)
@@ -251,32 +413,7 @@ def decode_lanes_reference(dplan_t: dict, pays: LanePayloads,
                     h[inm]
             u = torch.where(upd, (l + rng * cum_hi // n - 1) & U32, u)
             l = torch.where(upd, l + rng * cum_lo // n, l)
-
-            # E1* batch: k1 shared leading bits shift out
-            diff = l ^ u
-            e1 = upd & ((diff >> MSB_SHIFT) == 0)
-            k1 = torch.where(e1, ARITH_M - _bit_length(diff), 0)
-            l = torch.where(e1, (l << k1) & FULL, l)
-            u = torch.where(e1, ((u << k1) | ((1 << k1) - 1)) & FULL, u)
-
-            # E3* batch: k3 straddle steps
-            e3 = upd & ((l >> SMSB_SHIFT) == 1) & ((u >> SMSB_SHIFT) == 2)
-            lx = (l << (32 - SMSB_SHIFT)) & U32
-            ux = (u << (32 - SMSB_SHIFT)) & U32
-            lrun = 32 - _bit_length((~lx | 1) & U32)
-            zrun = 32 - _bit_length(ux)
-            k3 = torch.where(e3, 1 + torch.minimum(lrun, zrun), 0)
-            l = torch.where(e3, (l << k3) & MSB_CLEAR, l)
-            u = torch.where(e3, ((u << k3) & MSB_CLEAR) | MSB_BIT
-                            | ((1 << k3) - 1), u)
-
-            # the tag takes k1 stream bits, then k3 and one final MSB flip
-            # (k1 = 0 and k3 = 0 where a batch did not run); both batches'
-            # shifts follow from (l, u) alone, so one read serves them
-            v, B = getk(B, k1 + k3)
-            t = ((t << k1) | (v >> k3)) & FULL
-            t = (((t << k3) | (v & ((1 << k3) - 1))) & FULL) \
-                ^ torch.where(e3, MSB_BIT, 0)
+            l, u, t, B = _renormalise(l, u, t, B, upd, getk)
             xs[:, i] = x
         prev = symtab[c][(sb + xs).clamp(max=S - 1)]
         out[rows, c] = (prev[lvalid] + sym_add).to(out.dtype)
@@ -284,11 +421,13 @@ def decode_lanes_reference(dplan_t: dict, pays: LanePayloads,
         out[rows, cols] = ord("\n")
     over = B > 8 * (pays.len + OVERRUN_BYTES)
     flags = (bad.long() * FLAG_BAD) | (over.long() * FLAG_OVERRUN)
+    if start_flags is not None:
+        flags |= start_flags
     return torch.stack([l, u, t, B, flags], 1)
 
 
 def _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
-           cols_run):
+           cols_run, start_flags):
     cols = dplan_t["columns"]
     W = len(lane_counts)
     if pays.flat.dtype != torch.uint8 or pays.off.shape != (W,) \
@@ -311,9 +450,13 @@ def _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
         raise ValueError(f"out must be ({n}, >= {cols}) uint8")
     if cols_run is not None and not 0 <= cols_run <= cols:
         raise ValueError(f"cols_run must be in [0, {cols}]")
+    if start_flags is not None and (start_flags.dtype != torch.int64
+                                    or start_flags.shape != (W,)):
+        raise ValueError(f"start_flags must be ({W},) int64")
     dev = draws_t.device
     tensors = [pays.flat, pays.off, pays.len, states, out,
-               dplan_t["init_counts"]] + ([cl] if cl is not None else [])
+               dplan_t["init_counts"]] + ([cl] if cl is not None else []) \
+        + ([start_flags] if start_flags is not None else [])
     if any(x.device != dev for x in tensors):
         raise ValueError("inputs and plan must share one device")
 
@@ -383,24 +526,27 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
                    states: torch.Tensor, out: torch.Tensor,
                    sym_add: int = 0, cols_run: int | None = None,
                    lanes_per_warp: int = LANES_PER_WARP,
-                   layout: int | None = None) -> torch.Tensor:
+                   layout: int | None = None,
+                   start_flags: torch.Tensor | None = None) -> torch.Tensor:
     """Decode the lanes into the rows of `out` (see the module docstring)
     and return their final states, (W, 5) int64 rows of (l, u, t,
     consumed bits, flags). draws_t: (cols, N) uint8; cl: (N,) uint8 or
     None with one cluster; states: (W, 4) int64 start (l, u, t, consumed
     bits); out: (N, cols or cols + 1) uint8. cols_run stops after that
-    many columns. CPU tensors take the plain version; CUDA tensors launch
+    many columns. start_flags, (W,) int64 or None: K5p's flags; a lane
+    with one decodes nothing (its rows are left as they are) and keeps it
+    in its final flags. CPU tensors take the plain version; CUDA tensors launch
     K5 (csrc/decoder.cu), lanes_per_warp lanes in each warp, in `layout`
     (``launch_shape``'s choice where None), with each lane's records of
     the plan's models at risk (``coder_device.risk_tables``) in device
     memory where it has any, or raise."""
     _check(dplan_t, pays, draws_t, cl, lane_counts, base, states, out,
-           cols_run)
+           cols_run, start_flags)
     dev = draws_t.device
     if dev.type == "cpu":
         return decode_lanes_reference(dplan_t, pays, draws_t, cl,
                                       lane_counts, base, states, out,
-                                      sym_add, cols_run)
+                                      sym_add, cols_run, start_flags)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not out.is_contiguous():
@@ -413,11 +559,7 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
     n = draws_t.shape[1]
     draws_t = draws_t.contiguous()
     states = states.contiguous()
-    flat = pays.flat
-    padded = _padded_len(int(pays.lens.sum()))
-    if flat.data_ptr() % 8 or flat.numel() < padded:
-        flat = torch.zeros(padded, dtype=torch.uint8, device=dev)
-        flat[: pays.flat.numel()] = pays.flat
+    flat = _packed_words(pays)
     lmax = int(max(lane_counts, default=0))
     shape = _card_shape(lib, dplan_t, lmax, lanes_per_warp, layout)
     scratch = _uses_scratch(shape, W, dev)
@@ -441,7 +583,9 @@ def decode_lanes_t(dplan_t: dict, pays: LanePayloads, draws_t: torch.Tensor,
         dplan_t["qrtab"].data_ptr(), dplan_t["mloc"].data_ptr(),
         dplan_t["mtab"].data_ptr(), dplan_t["col_model_off"].data_ptr(),
         dplan_t["init_counts"].data_ptr(), dplan_t["col_slots"].data_ptr(),
-        dplan_t["symtab"].data_ptr(), S, states.data_ptr(), out_t.data_ptr(),
+        dplan_t["symtab"].data_ptr(), S, states.data_ptr(),
+        start_flags.contiguous().data_ptr() if start_flags is not None
+        else None, out_t.data_ptr(),
         out.data_ptr(), out.shape[1], sym_add, state_out.data_ptr(),
         shape["layout"], *_risk_args(risk, rec), rmax,
         scratch.data_ptr() if scratch is not None else None,

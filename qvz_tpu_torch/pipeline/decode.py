@@ -9,23 +9,25 @@ in seconds, in ``stats["phase_seconds"]`` when the caller passes a dict:
   h2d       draws and payloads to the device, the draws transposed there
   warmup    the wait for the warmup shard, which a host thread decodes
             meanwhile (primed containers): it gives the lanes' bank
-  prologue  the lanes' cluster-id prologue on the host (-c K > 1), and
-            the ids and start states to the device; in the first wave also
-            the decode plan's tables, built once from the warmup bank
+  prologue  K5p on the device, fenced: every lane's start state and, at
+            -c K > 1, its cluster-id prologue (the ids K5 reads); in the
+            first wave also the decode plan's tables, built once from the
+            warmup bank and uploaded
   decoder   K5 on the device, fenced
   d2h       the lanes' text rows and final states to the host
-  redecode  the lanes K5 flagged as corrupt (bad or overrun) decoded
-            again on the host, so that its error or output is the outcome
+  redecode  the lanes K5p or K5 flagged as corrupt (bad, an id past the
+            cluster count, or overrun) decoded again on the host, so that
+            its error or output is the outcome
 
 The lanes decode in waves (``_waves``): runs of shards whose draws and
 text fit WAVE_BYTES, one K5 call a wave, so host and device memory stay
 bounded for any file; each phase's seconds add up over the waves. K5
 writes each wave's text rows, symbols + 33 and the newline, straight into
 a device buffer, so the rows need no assembly on the host. ``stats`` also
-gets ``lanes``, ``waves`` and ``fallback_lanes``: the lanes K5 flagged,
-decoded again on the host. K5 takes every plan (``launch_shape``'s
-layouts) and decodes every rescale, so only a corrupt lane goes to the
-host.
+gets ``lanes``, ``waves`` and ``fallback_lanes``: the lanes K5p or K5
+flagged, decoded again on the host. K5 takes every plan
+(``launch_shape``'s layouts) and K5p and K5 decode every rescale, so only
+a corrupt lane goes to the host.
 
 v1 containers, row-major QVZ2 and single-shard QVZ2 have no lanes: they
 go to the port's host decoder (``pipeline/host.py``), as ``qvz_tpu``
@@ -68,6 +70,7 @@ class Lanes(NamedTuple):
     starts: torch.Tensor             # (W, 4) int64
     bank: np.ndarray | None          # the warmup shard's bank, if primed
     first: int                       # the shard of lane 0
+    start_flags: torch.Tensor | None = None   # (W,) int64, K5p's flags
 
 
 def _parse(compressed):
@@ -228,23 +231,12 @@ def _prepare(compressed, head, tables, out, dev, ph, wave: range,
         dplan_t = decoder_device.decode_plan_to_torch(
             decoder_device.DecodePlan(coder_device.LanePlan(tables, bank),
                                       tables), dev)
-    cl = None
-    if head.cluster_count > 1:
-        with ThreadPoolExecutor(max_workers=_workers()) as ex:
-            pro = list(ex.map(
-                lambda a: rt.decode_cluster_prologue(tables, a[0], a[1],
-                                                     init_bank=bank),
-                zip(pays, lane_counts)))
-        cl = torch.from_numpy(np.concatenate([p[0] for p in pro])).to(dev)
-        starts = np.asarray([p[1:] for p in pro], dtype=np.int64)
-    else:
-        starts = np.asarray([decoder_device.start_state(p) for p in pays],
-                            dtype=np.int64)
-    starts = torch.from_numpy(starts).to(dev)
+    cl, starts, start_flags = decoder_device.cluster_prologue(
+        dplan_t, lane_pays, lane_counts)
     synchronize(dev)
     _add(ph, "prologue", time.perf_counter() - t4)
     return Lanes(dplan_t, lane_pays, draws_t, cl, lane_counts, starts, bank,
-                 wave.start)
+                 wave.start, start_flags)
 
 
 def _decode_lanes(compressed, head, tables, out, dev, st) -> None:
@@ -269,7 +261,8 @@ def _decode_lanes(compressed, head, tables, out, dev, st) -> None:
                 rows.shape, dtype=torch.uint8, device=dev)
             final = decoder_device.decode_lanes_t(
                 lanes.dplan_t, lanes.pays, lanes.draws_t, lanes.cl,
-                lanes.lane_counts, 0, lanes.starts, dst, sym_add=33)
+                lanes.lane_counts, 0, lanes.starts, dst, sym_add=33,
+                start_flags=lanes.start_flags)
             synchronize(dev)
             t1 = time.perf_counter()
             _add(ph, "decoder", t1 - t0)

@@ -13,9 +13,9 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
                or the tables read from reuse_blocks
   draws        WELL jump-ahead and dither draws on the host
   quantize     K1 on the device (ops/quantize.py)
-  device_code  the cluster-id triples (host replay), K2a and K2b on the
-               device (ops/coder_device.py), the warmup shard coded by a
-               host thread meanwhile, and the payload d2h
+  device_code  K2s (the cluster-id segment's triples, -c K > 1), K2a and
+               K2b on the device (ops/coder_device.py), the warmup shard
+               coded by a host thread meanwhile, and the payload d2h
   d2h          the device-to-host copies of payload words and recon
   code         everything after quantize: lane coding, distortion and
                container assembly
@@ -199,7 +199,9 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
     """Entropy-code the shards: the warmup shard on the host in a thread,
     every other shard as one device lane of the block that holds it (the
     counterpart of qvz_tpu's _device_coder_encode). quant: each block's
-    (mid, qs, qv); clusters: (N,) uint8 ids, or None with one cluster.
+    (mid, qs, qv); clusters: (N,) uint8 ids on the host, or None with one
+    cluster (each block's lanes code its own ids on its device,
+    ``b.clusters``).
     Returns (payloads, distortion sum, recon)."""
     ph, dv = st.phase_seconds, st.device_seconds
     columns = data.shape[1]
@@ -227,17 +229,6 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
     plan = coder_device.LanePlan(tables, bank)
 
     lane_counts = counts[first:]
-    ctrip = None
-    if clusters is not None:
-        # the cluster-id segment: the exact host replay of the cluster-id
-        # model, one (cum_lo, cum_hi, total) triple per line of a lane
-        ctrip = np.zeros((len(lane_counts), max(lane_counts), 3),
-                         dtype=np.uint32)
-        for w in range(len(lane_counts)):
-            lo, hi = int(offs[first + w]), int(offs[first + w + 1])
-            ctrip[w, : hi - lo] = rt.replay_model(
-                plan.cluster_init_counts, plan.cluster_init_total,
-                clusters[lo:hi])
     # each block's lanes w0 .. w1 - 1, from its local line base
     lanes = []
     for b in blocks:
@@ -257,10 +248,9 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
                 continue
             if b.device not in plans:
                 plans[b.device] = coder_device.plan_to_torch(plan, b.device)
-            lc = lane_counts[w0:w1]
             raws.append(coder_device.code_lanes(
-                plans[b.device], mid, qs, lc, base,
-                None if ctrip is None else ctrip[w0:w1, :max(lc)]))
+                plans[b.device], mid, qs, lane_counts[w0:w1], base,
+                b.clusters))
         for raw, (w0, w1, _) in zip(raws, lanes):
             if raw is not None:
                 lane_pays[w0:w1], flags[w0:w1], secs = \

@@ -33,6 +33,9 @@ the CPU:
   K2b chain_kernel: the column chain, with the cluster-id segment at -c 3,
       through rescales, and at pending runs of 31 to 100 bits
       (chip_smoke.pending_runs);
+  K2s segment_kernel: the cluster-id segment's triples at -c 3 (and
+      through model 0's rescale in the rescale case), also against the
+      host's rt.replay_model;
   K3  hist_kernel: mode 0 (counters in shared memory, C <= 11) at C = 1
       and 3, mode 1 (in device memory) at C = 40;
   K4  kmeans_kernel: sums in registers (K = 3), in shared memory (K = 150)
@@ -41,6 +44,10 @@ the CPU:
   K5  decode_lanes_kernel and text_rows_kernel: layouts 0, 1 and 2,
       primed and unprimed containers, and with the records of models that
       rescale;
+  K5p cluster_prologue_kernel: -c 1 (the start states) and -c 3 (the
+      ids), also against the host's rt.decode_cluster_prologue, through
+      model 0's rescale in the rescale case, and on lanes it flags (banks
+      whose model 0 total is not its counts' sum);
   the microbenchmark's issue (addxor, cmpsel), mix (3-D and 2-D) and
   selmix (sel, sel_b4, sweeponly);
   the encode and decode on the card at -c 1 primed and -c 3 unprimed,
@@ -51,9 +58,10 @@ corpus (``corpus``): 52 column-major QVZ2 containers of 20,000 x
 50 with lanes, cut, flipped, cut short under recomputed checksums, with
 lying directories, each decoded with device="cuda" and held to the port's
 host decoder's outcome (both raise ValueError, or both return the same
-bytes), with K5 launched for every container whose header, directory,
-checksums and host stages (the warmup shard and the cluster-id prologues)
-pass. The child's last line is one JSON object of what it ran.
+bytes), with K5p and K5 launched for every container whose header,
+directory, checksums and warmup shard pass, and K5p's ids, states and
+flags there equal to the host's cluster-id prologue lane by lane. The
+child's last line is one JSON object of what it ran.
 """
 
 from __future__ import annotations
@@ -72,15 +80,16 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import make_input, require  # noqa: E402
+from chip_smoke import make_input, prologue_check, require  # noqa: E402
 from qvz_tpu_torch.format import container_v2  # noqa: E402
 
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 # the mangled names of the kernels in qvz_tpu_torch/csrc/
-KERNEL_REGEX = (r"(quantize|triples|chain|hist|kmeans|decode_lanes|text_rows)"
-                r"_kernel|qvz_mb_")
-KERNELS = ("quantize", "coder_triples", "coder_chain", "hist", "kmeans",
-           "decoder", "issue", "mix", "selmix")
+KERNEL_REGEX = (r"(quantize|triples|chain|segment|hist|kmeans|decode_lanes|"
+                r"text_rows|cluster_prologue)_kernel|qvz_mb_")
+KERNELS = ("quantize", "coder_triples", "coder_chain", "coder_segment",
+           "hist", "kmeans", "decoder", "cluster_prologue", "issue", "mix",
+           "selmix")
 # the workload's shape: lanes of 125 lines keep the plain K2 and K5 short
 N, COLS, SHARDS = 4001, 20, 32
 CORPUS_SHAPE = (20_000, 50)
@@ -226,21 +235,32 @@ def outcome(fn):
 def check_corpus(blobs) -> dict:
     """Each corrupt container decoded with device="cuda", against the
     port's host decoder: the same outcome, the checksum message where the
-    host gives one, and K5 launched exactly where prepare_lanes passes on
-    the host (header, directory, checksums, warmup and prologues)."""
+    host gives one, and K5p and K5 launched exactly where prepare_lanes
+    passes on the host (header, directory, checksums and warmup), K5p
+    there equal to the host's prologue lane by lane (prologue_check)."""
     from qvz_tpu_torch import _build
     from qvz_tpu_torch.pipeline import decode as pdec
     from qvz_tpu_torch.pipeline import host
 
     res = {"containers": len(blobs), "raised": 0, "decoded": 0,
-           "reached_k5": 0, "flagged_lanes": 0}
+           "reached_k5": 0, "flagged_lanes": 0, "prologue_lanes": 0,
+           "prologue_flagged": 0}
     for name, blob in blobs:
         want = outcome(lambda: host.decode(blob))
         reaches = outcome(lambda: pdec.prepare_lanes(blob, "cpu"))[0] == "ok"
         before = _build.LAUNCHES["decoder"]
+        before_p = _build.LAUNCHES["cluster_prologue"]
         st: dict = {}
         got = outcome(lambda: pdec.decode(blob, device="cuda", stats=st))
         launched = _build.LAUNCHES["decoder"] - before
+        require((_build.LAUNCHES["cluster_prologue"] - before_p > 0)
+                == reaches, f"corpus {name}: K5p launched where the host "
+                "stages pass")
+        if reaches:
+            lanes = pdec.prepare_lanes(blob, "cuda")
+            res["prologue_flagged"] += prologue_check(blob, lanes,
+                                                      f"corpus {name}")
+            res["prologue_lanes"] += len(lanes.lane_counts)
         require(got[0] == want[0], f"corpus {name}: the card's outcome "
                 f"{got[0]} ({got[1] if got[0] != 'ok' else ''}) is the host "
                 f"decoder's {want[0]} ({want[1] if want[0] != 'ok' else ''})")
@@ -336,27 +356,41 @@ def _stats_quantize_code(torch, dev, paths: list) -> None:
                    cd.triples(plan_d, on(mid), on(qs), lanes, base, 0, COLS,
                               layout=lay), trip)
             paths.append(f"K2a layout {lay} C={k}")
-        ctrip = None
         if ids is not None:
-            ctrip = np.zeros((len(lanes), max(lanes), 3), dtype=np.uint32)
-            for j in range(len(lanes)):
-                lo, hi = int(offs[first + j]), int(offs[first + j + 1])
-                ctrip[j, :hi - lo] = rt.replay_model(
-                    plan.cluster_init_counts, plan.cluster_init_total,
-                    ids[lo:hi])
-        got = cd.encode_lanes_raw(plan_d, on(mid), on(qs), lanes, base, ctrip)
-        want = cd.encode_lanes_raw(plan_c, mid, qs, lanes, base, ctrip)
+            seg = cd.segment_triples(plan_d, on(ids_t), lanes, base)
+            want = cd.segment_triples_reference(plan_c, ids_t, lanes, base)
+            _equal(f"K2s {tag}", seg, want)
+            lo = base
+            for j, cnt in enumerate(lanes):
+                t = rt.replay_model(plan.cluster_init_counts,
+                                    plan.cluster_init_total,
+                                    ids[lo:lo + cnt]).astype(np.int64)
+                require(np.array_equal(
+                    want[:cnt, j].numpy(),
+                    t[:, 0] | (t[:, 1] << 20) | (t[:, 2] << 40)),
+                    f"K2s {tag}: lane {j}'s triples are the host replay's")
+                lo += cnt
+            paths.append(f"K2s C={k}")
+        got = cd.encode_lanes_raw(plan_d, on(mid), on(qs), lanes, base,
+                                  on(ids_t))
+        want = cd.encode_lanes_raw(plan_c, mid, qs, lanes, base, ids_t)
         require(got[0] == want[0] and np.array_equal(got[1], want[1]),
                 f"K2a + K2b {tag}: the lanes' payloads equal the plain "
                 "version's")
         paths.append(f"K2b C={k}" + (" with the cluster-id segment"
-                                     if ctrip is not None else ""))
+                                     if ids is not None else ""))
 
         comp = host.encode(data, dist, n_clusters=k,
                            well_state=WellState.debug(), shards=SHARDS,
                            prime=prime, want_recon=False).compressed
         lc, ld = pdec.prepare_lanes(comp, "cpu"), pdec.prepare_lanes(comp,
                                                                      dev)
+        _equal(f"K5p {tag}", [x for x in (ld.cl, ld.starts, ld.start_flags)
+                              if x is not None],
+               [x for x in (lc.cl, lc.starts, lc.start_flags)
+                if x is not None])
+        prologue_check(comp, ld, f"K5p {tag}")
+        paths.append(f"K5p C={k}")
         rows = torch.zeros((lc.draws_t.shape[1], COLS + 1),
                            dtype=torch.uint8)
         fin = dd.decode_lanes_reference(lc.dplan_t, lc.pays, lc.draws_t,
@@ -369,6 +403,9 @@ def _stats_quantize_code(torch, dev, paths: list) -> None:
                                   layout=lay)
             _equal(f"K5 + text rows {tag} layout {lay}", (f, o), (fin, rows))
             paths.append(f"K5 layout {lay} {tag}")
+        if ids is not None:
+            _prologue_flags(dev, comp, lc, tables, tag)
+            paths.append(f"K5p C={k} on lanes it flags")
 
         out = port.encode(data, dist, n_clusters=k,
                           well_state=WellState.debug(), shards=SHARDS,
@@ -392,10 +429,45 @@ def _stats_quantize_code(torch, dev, paths: list) -> None:
     paths.append("K3 mode 1 C=40")
 
 
+# model 0's (counts, total) of a lanes' bank on which the host's prologue
+# fails: a total below the counts' sum (the tag leaves [l, u]) and above
+# it (the search passes the last count)
+FAILING_BANKS = (((40, 40, 40), 50), ((1, 1, 1), 1000))
+
+
+def _prologue_flags(dev, comp, lanes, tables, tag: str) -> None:
+    """K5p against its plain version and the host's prologue on the lanes
+    of a -c 3 container under FAILING_BANKS: some lanes are flagged."""
+    from qvz_tpu_torch.ops import coder_device as cd
+    from qvz_tpu_torch.ops import decoder_device as dd
+
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    moff = np.asarray(tables.model_off, dtype=np.int64)
+    pays_d = dd.LanePayloads(*(x.to(dev) for x in lanes.pays[:3]),
+                             lanes.pays.lens)
+    flagged = 0
+    for counts, total in FAILING_BANKS:
+        bank = np.concatenate([np.ones(int(moff[-1]), dtype=np.uint32),
+                               cards.astype(np.uint32)])
+        bank[:len(counts)], bank[int(moff[-1])] = counts, total
+        dplan = dd.DecodePlan(cd.LanePlan(tables, bank), tables)
+        got = dd.cluster_prologue(dd.decode_plan_to_torch(dplan, dev),
+                                  pays_d, lanes.lane_counts)
+        want = dd.cluster_prologue_reference(
+            dd.decode_plan_to_torch(dplan, "cpu"), lanes.pays,
+            lanes.lane_counts)
+        _equal(f"K5p {tag} bank {counts} {total}", got, want)
+        flagged += prologue_check(comp, lanes._replace(
+            cl=got[0], starts=got[1], start_flags=got[2], bank=bank),
+            f"K5p {tag} bank {counts} {total}")
+    require(flagged > 0, f"K5p {tag}: the failing banks flag lanes")
+
+
 def _rescale(torch, dev, paths: list) -> None:
     """K2a and K5 in layouts 0-2 with the records of models that rescale,
-    K2b through the rescales and at long pending runs
-    (chip_smoke.rescale_case at a small size)."""
+    K2b through the rescales and at long pending runs, K2s and K5p
+    through model 0's rescale (chip_smoke.rescale_case at a small
+    size)."""
     from chip_smoke import rescale_case
     from qvz_tpu_torch.constants import DISTORTION_MSE
     from qvz_tpu_torch.ops.distortion import make_matrix
@@ -403,7 +475,9 @@ def _rescale(torch, dev, paths: list) -> None:
     rescale_case(torch, np, make_matrix(DISTORTION_MSE), dev, lanes=8,
                  lines=600, rescales=1, tag="rescale:")
     paths.extend([f"K2a layout {lay} with records" for lay in (0, 1, 2)]
-                 + ["K2b through rescales", "K2b pending runs of 31-100 bits"]
+                 + ["K2b through rescales", "K2b pending runs of 31-100 bits",
+                    "K2s through model 0's rescale",
+                    "K5p through model 0's rescale"]
                  + [f"K5 layout {lay} with records" for lay in (0, 1, 2)])
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K2a's, K2b's and K5's times on one GPU at 1M x 100, in this checkout
-and in another.
+"""K2a's, K2b's and K5's times on one GPU at 1M x 100, and the device
+decode's and encode's phases, in this checkout and in another.
 
     python3 scripts/time_k2_k5.py [PARENT_ROOT]
 
@@ -13,11 +13,18 @@ card gives mid and qs, the warmup shard the bank; K2a (``triples``) over
 all columns, K2b (``chain``) over all columns from a fresh lane output,
 and K5 (``decode_lanes_t``) over all columns of the lanes of the port's
 host-engine container, each a CUDA-event time, median of 9 after a
-warm-up. Runs go parent, change, change, parent where PARENT_ROOT is
-given, else one run here. Prints the card's name and power limit, one
-JSON line a run, then each kernel's median over the runs on each side
-and the change's ratio to the parent. Without a card it exits 1.
-chip_smoke.py checks the kernels; this script only times them.
+warm-up. Then ``pipeline.decode.decode(device="cuda")`` of the port's
+host-engine containers at -c 1 and -c 3 -T 4, primed and unprimed, and
+``pipeline.encode.encode(device="cuda")`` at -c 3 -T 4 primed and
+unprimed: each the median of 5 wall times after a warm-up, with the
+median run's phases (``decode_<name>_<phase>``, ``encode_c3_<name>_
+<phase>``). Where the checkout has them, K5p's and K2s's device times
+on the -c 3 primed lanes (torch.profiler, the mean of 10 launches).
+Runs go parent, change, change, parent where
+PARENT_ROOT is given, else one run here. Prints the card's name and power
+limit, one JSON line a run, then each time's median over the runs on
+each side and the change's ratio to the parent. Without a card it exits
+1. chip_smoke.py checks the kernels; this script only times them.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 REPS = 9
 
@@ -112,8 +120,71 @@ def child() -> int:
     out["decoder"] = median_ms(lambda: dd.decode_lanes_t(
         ln.dplan_t, ln.pays, ln.draws_t, ln.cl, ln.lane_counts, 0,
         ln.starts, rows, 33))
+    del ln, rows
+
+    def wall(name, fn):
+        """The median of 5 wall times after a warm-up into out[name], and
+        that run's phases (fn's result) into out[name + "_" + phase]."""
+        fn()
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn()
+            runs.append((time.perf_counter() - t, res))
+        out[name], ph = sorted(runs, key=lambda r: r[0])[2]
+        for key, v in ph.items():
+            out[f"{name}_{key}"] = v
+
+    for k, prime in ((1, True), (1, False), (3, True), (3, False)):
+        kw = dict(n_clusters=k, cluster_threshold=4.0,
+                  well_state=WellState.debug(), shards=shards, prime=prime)
+        comp = (comp if (k, prime) == (1, True) else
+                host.encode(data, dist, want_recon=False, **kw).compressed)
+        st: dict = {}
+        tag = f"c{k}_{'primed' if prime else 'unprimed'}"
+        wall(f"decode_{tag}", lambda: (
+            pdec.decode(comp, device="cuda", stats=st),
+            dict(st["phase_seconds"]))[1])
+        if (k, prime) == (3, True) and hasattr(dd, "cluster_prologue"):
+            device_times(out, comp, pdec, dd, cd, torch)
+    for prime in (True, False):
+        wall(f"encode_c3_{'primed' if prime else 'unprimed'}",
+             lambda: port.encode(
+                 data, dist, n_clusters=3, cluster_threshold=4.0,
+                 well_state=WellState.debug(), shards=0, prime=prime,
+                 want_recon=False, device="cuda").stats.phase_seconds)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def device_times(out, comp, pdec, dd, cd, torch) -> None:
+    """K5p's and K2s's device times (ms) on a container's lanes: the mean
+    of 10 launches back to back under torch.profiler (K2s over the ids K5p
+    decodes, from the lanes' plan)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ln = pdec.prepare_lanes(comp, "cuda")
+
+    def device_ms(fn, key):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if key in e.key]
+        total = sum((getattr(e, "device_time_total", None)
+                     or e.cuda_time_total) for e in evs)
+        n = sum(e.count for e in evs)
+        return total / 1e3 / n if n else float("nan")
+
+    out["cluster_prologue_device"] = device_ms(
+        lambda: dd.cluster_prologue(ln.dplan_t, ln.pays, ln.lane_counts),
+        "cluster_prologue_kernel")
+    out["coder_segment_device"] = device_ms(
+        lambda: cd.segment_triples(ln.dplan_t, ln.cl, ln.lane_counts, 0),
+        "segment_kernel")
 
 
 def main() -> int:
@@ -138,13 +209,18 @@ def main() -> int:
         res = json.loads(r.stdout.strip().splitlines()[-1])
         print(f"{side}: {json.dumps(res)}", flush=True)
         runs[side].append(res)
-    for k in ("coder_triples", "coder_chain", "decoder"):
+    for k in runs["change"][0]:
+        if k == "root":
+            continue
         med = {s: statistics.median(r[k] for r in v)
-               for s, v in runs.items() if v}
+               for s, v in runs.items() if v and k in v[0]}
         ratio = (f", change / parent {med['change'] / med['parent']:.4f}"
                  if "parent" in med else "")
-        print(f"{k}: " + ", ".join(f"{s} {m:.4f} ms" for s, m in med.items())
-              + ratio, flush=True)
+        unit = "ms" if k in ("coder_triples", "coder_chain", "decoder") \
+            or k.endswith("_device") else "s"
+        print(f"{k}: " + ", ".join(f"{s} {m:.6f} {unit}"
+                                   for s, m in med.items()) + ratio,
+              flush=True)
     return 0
 
 

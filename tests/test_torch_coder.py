@@ -217,7 +217,8 @@ def test_cluster_segment_matches_jax_and_host(coder, prime):
         jnp.asarray(qs.astype(np.int32)), lane_counts, base, ct)
     got = cd.encode_lanes_raw(
         cd.plan_to_torch(plan, "cpu"), torch.from_numpy(md.astype(np.int32)),
-        torch.from_numpy(qs.astype(np.int32)), lane_counts, base, ct)
+        torch.from_numpy(qs.astype(np.int32)), lane_counts, base,
+        torch.from_numpy(clusters))
     assert not got[1].any()
     _assert_same(want, got)
     lo = base
@@ -245,16 +246,24 @@ def test_cluster_plan_matches_jax(prime):
 
 
 def test_cluster_triples_are_checked():
+    """The lanes' cluster ids, from which K2s makes the segment's triples,
+    are (N,) uint8, one a line of the quantize outputs, and a plan of one
+    cluster has no segment."""
     tables, md, qs, clusters, _ = _clustered(300, 4, 2, 3, 0)
     plan_t = cd.plan_to_torch(cd.LanePlan(tables, None), "cpu")
     m = torch.from_numpy(md.astype(np.int32))
     q = torch.from_numpy(qs.astype(np.int32))
-    with pytest.raises(ValueError, match="cluster_triples"):
-        cd.code_lanes(plan_t, m, q, [150, 150], 0,
-                      np.zeros((2, 100, 3), dtype=np.uint32))
-    with pytest.raises(ValueError, match="cluster_triples"):
-        cd.code_lanes(plan_t, m, q, [150, 150], 0,
-                      np.zeros((2, 150, 3), dtype=np.int64))
+    ids = torch.from_numpy(clusters)
+    with pytest.raises(ValueError, match="clusters"):
+        cd.code_lanes(plan_t, m, q, [150, 150], 0, ids[:200])
+    with pytest.raises(ValueError, match="clusters"):
+        cd.code_lanes(plan_t, m, q, [150, 150], 0, ids.long())
+    with pytest.raises(ValueError, match="clusters"):
+        cd.segment_triples(plan_t, ids[:250], [150, 150], 0)
+    t1, md1, qs1 = _streams(300, 4, seed=3)
+    with pytest.raises(ValueError, match="one cluster"):
+        cd.segment_triples(cd.plan_to_torch(cd.LanePlan(t1, None), "cpu"),
+                           ids, [150, 150], 0)
 
 
 @pytest.mark.parametrize("prime", [True, False], ids=["bank", "ones"])
@@ -324,13 +333,13 @@ def test_lane_coder_kernel_codes_the_cluster_segment():
     tables, md, qs, clusters, bank = _clustered(1003, 7, 3, 31, 100)
     lane_counts = _lanes(1003, 100, 228)
     plan = cd.LanePlan(tables, bank)
-    ct = _triples(plan, clusters, lane_counts, 100)
+    ids = torch.from_numpy(clusters)
     m = torch.from_numpy(md.astype(np.int32))
     q = torch.from_numpy(qs.astype(np.int32))
     want = cd.encode_lanes_raw(cd.plan_to_torch(plan, "cpu"), m, q,
-                               lane_counts, 100, ct)
+                               lane_counts, 100, ids)
     got = cd.encode_lanes_raw(cd.plan_to_torch(plan, "cuda"), m.cuda(),
-                              q.cuda(), lane_counts, 100, ct)
+                              q.cuda(), lane_counts, 100, ids.cuda())
     _assert_same(want, got)
 
 
@@ -409,8 +418,8 @@ def test_chain_reference_matches_pass2(segment):
         torch.from_numpy(qs.astype(np.int32)), lane_counts, 0, 0, cols)
     ncols = cols
     if segment:
-        seg = cd.segment_triples(_triples(plan, clusters, lane_counts, 0),
-                                 lane_counts, "cpu")
+        seg = cd.segment_triples(cd.plan_to_torch(plan, "cpu"),
+                                 torch.from_numpy(clusters), lane_counts, 0)
         trip, ncols = torch.cat([seg, trip]), cols + 1
     words, n_words, carry = cd.chain_reference(trip, ncols, lane_counts)
 
@@ -452,7 +461,8 @@ def test_column_chunks_match_jax(coder, monkeypatch, chunks, segment):
     ct = _triples(plan, clusters, lane_counts, base) if segment else None
     args = (cd.plan_to_torch(plan, "cpu"),
             torch.from_numpy(md.astype(np.int32)),
-            torch.from_numpy(qs.astype(np.int32)), lane_counts, base, ct)
+            torch.from_numpy(qs.astype(np.int32)), lane_counts, base,
+            torch.from_numpy(clusters) if segment else None)
     one = cd.code_lanes(*args)
     monkeypatch.setattr(cd, "TRIPLE_BYTES", 8 * W * L * -(-cols // chunks))
     assert -(-cols // cd.chunk_columns(cols, W, L)) == chunks
@@ -564,22 +574,23 @@ def test_triples_and_chain_kernels_match_plain(monkeypatch):
     tables, md, qs, clusters, bank = _clustered(1003, 7, 3, 31, 100)
     lane_counts = _lanes(1003, 100, 228)
     plan = cd.LanePlan(tables, bank)
-    ct = _triples(plan, clusters, lane_counts, 100)
+    ids = torch.from_numpy(clusters).cuda()
     plan_t = cd.plan_to_torch(plan, "cuda")
     m = torch.from_numpy(md.astype(np.int32)).cuda()
     q = torch.from_numpy(qs.astype(np.int32)).cuda()
     trip = cd.triples(plan_t, m, q, lane_counts, 100, 2, 7)
     want = cd.triples_reference(plan_t, m, q, lane_counts, 100, 2, 7)
     assert torch.equal(trip, want)
-    seg = cd.segment_triples(ct, lane_counts, "cuda")
+    seg = cd.segment_triples(plan_t, ids, lane_counts, 100)
     raw = cd.chain(seg, 1, lane_counts,
                    cd.start_raw(len(lane_counts), "cuda", 4096))
     want = cd.chain_reference(seg, 1, lane_counts)
     assert torch.equal(raw[1], want[1]) and torch.equal(raw[2], want[2])
     monkeypatch.setattr(cd, "TRIPLE_BYTES", 8 * len(lane_counts) * 228 * 4)
-    got = cd.encode_lanes_raw(plan_t, m, q, lane_counts, 100, ct)
+    got = cd.encode_lanes_raw(plan_t, m, q, lane_counts, 100, ids)
     _assert_same(cd.encode_lanes_raw(cd.plan_to_torch(plan, "cpu"), m.cpu(),
-                                     q.cpu(), lane_counts, 100, ct), got)
+                                     q.cpu(), lane_counts, 100, ids.cpu()),
+                 got)
 
 
 # ---------------------------------------------------------------------------
@@ -687,7 +698,8 @@ def test_cluster_segment_rescale_ragged(prime):
     ct = _triples(plan, clusters, lane_counts, base)
     got = cd.encode_lanes_raw(
         cd.plan_to_torch(plan, "cpu"), torch.from_numpy(md.astype(np.int32)),
-        torch.from_numpy(qs.astype(np.int32)), lane_counts, base, ct)
+        torch.from_numpy(qs.astype(np.int32)), lane_counts, base,
+        torch.from_numpy(clusters))
     want = jcd.encode_lanes_raw(
         jcd.LanePlan(tables, bank), jnp.asarray(md.astype(np.int32)),
         jnp.asarray(qs.astype(np.int32)), lane_counts, base, ct)
@@ -746,8 +758,100 @@ def test_rescale_kernels_match_plain(layout):
     want = cd.triples_reference(cd.plan_to_torch(plan, "cpu"), m, q,
                                 lane_counts, base, 0, cols)
     assert torch.equal(got.cpu(), want)
-    ct = _triples(plan, clusters, lane_counts, base)
     _assert_host(tables, bank, md, qs, clusters, lane_counts, base,
                  cd.encode_lanes_raw(cd.plan_to_torch(plan, "cuda"),
                                      m.cuda(), q.cuda(), lane_counts, base,
-                                     ct))
+                                     torch.from_numpy(clusters).cuda()))
+
+
+# ---------------------------------------------------------------------------
+# K2s: the cluster-id segment's triples from the lanes' ids on the device.
+
+
+def _replayed(plan, clusters, lane_counts, base):
+    """qvz_tpu's rt.replay_model over each lane's ids, packed as K2b's
+    step-major (L, W) triples, 0 past a ragged lane's end."""
+    W, L = len(lane_counts), max(lane_counts)
+    want = np.zeros((L, W), dtype=np.int64)
+    lo = base
+    for w, cnt in enumerate(lane_counts):
+        t = rt.replay_model(plan.cluster_init_counts,
+                            plan.cluster_init_total,
+                            clusters[lo:lo + cnt]).astype(np.int64)
+        want[:cnt, w] = t[:, 0] | (t[:, 1] << 20) | (t[:, 2] << 40)
+        lo += cnt
+    return want
+
+
+@pytest.mark.parametrize("n_cl", [2, 3])
+@pytest.mark.parametrize("prime", [True, False], ids=["prime", "noprime"])
+def test_segment_triples_reference_matches_replay_model(n_cl, prime):
+    """K2s's plain version equals qvz_tpu's host replay of the cluster-id
+    model on every lane, ragged lanes and a primed bank included."""
+    n, cols = 1003, 6
+    base = 100 if prime else 0
+    tables, md, qs, clusters, bank = _clustered(n, cols, n_cl, 50 + n_cl,
+                                                base)
+    lane_counts = _lanes(n, base, 228)
+    assert lane_counts[-1] < lane_counts[0]
+    plan = cd.LanePlan(tables, bank)
+    got = cd.segment_triples_reference(cd.plan_to_torch(plan, "cpu"),
+                                       torch.from_numpy(clusters),
+                                       lane_counts, base)
+    assert np.array_equal(got.numpy(),
+                          _replayed(plan, clusters, lane_counts, base))
+
+
+def _model0_near_limit(tables, bank, short):
+    """`bank` (None: counts ones, totals the cardinalities) with the
+    cluster-id model (model 0) started `short` short of 2^19, its first
+    count raised."""
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    moff = np.asarray(tables.model_off, dtype=np.int64)
+    blob = (np.concatenate([np.ones(int(moff[-1]), dtype=np.uint32),
+                            cards.astype(np.uint32)]) if bank is None
+            else np.array(bank, dtype=np.uint32))
+    total = ARITH_R - short
+    blob[0] += total - blob[int(moff[-1])]
+    blob[int(moff[-1])] = total
+    return blob
+
+
+def test_segment_triples_reference_rescales_twice():
+    """Model 0 started 24 short of 2^19 in lanes of 33,000 ids: it rescales
+    at a lane's fourth id and again about 32,768 ids later; K2s's plain
+    version equals the host's replay through both, and the lanes code to
+    the host coder's payloads."""
+    n, cols, W = 66_000, 1, 2
+    tables, md, qs, clusters, _ = _clustered(n, cols, 3, 61, 0)
+    bank = _model0_near_limit(tables, None, 24)
+    plan = cd.LanePlan(tables, bank)
+    lane_counts = [33_000, 33_000]
+    trip = _replayed(plan, clusters, lane_counts, 0)
+    totals = trip >> 40
+    rescales = (totals[1:] != totals[:-1] + 8).sum(0)
+    assert (rescales >= 2).all()
+    plan_t = cd.plan_to_torch(plan, "cpu")
+    got = cd.segment_triples_reference(plan_t, torch.from_numpy(clusters),
+                                       lane_counts, 0)
+    assert np.array_equal(got.numpy(), trip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("short", [None, 24], ids=["plain", "rescale"])
+def test_segment_kernel_matches_plain(short):
+    """K2s equals its plain version on the card, ragged lanes and model 0's
+    rescale included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2s has no CPU mode)")
+    tables, md, qs, clusters, bank = _clustered(1003, 7, 3, 31, 100)
+    if short is not None:
+        bank = _model0_near_limit(tables, bank, short)
+    lane_counts = _lanes(1003, 100, 228)
+    plan = cd.LanePlan(tables, bank)
+    ids = torch.from_numpy(clusters)
+    want = cd.segment_triples_reference(cd.plan_to_torch(plan, "cpu"), ids,
+                                        lane_counts, 100)
+    got = cd.segment_triples(cd.plan_to_torch(plan, "cuda"), ids.cuda(),
+                             lane_counts, 100)
+    assert torch.equal(got.cpu(), want)

@@ -607,3 +607,176 @@ def test_decode_in_waves(small_warmup, monkeypatch, prime):
     assert st["fallback_lanes"] == 0
     assert np.array_equal(got, want)
     assert np.array_equal(got, host_decode.decode(comp))
+
+
+# ---------------------------------------------------------------------------
+# K5p: every lane's start, and its cluster-id prologue, on the device.
+
+
+def _host_prologues(comp, lanes):
+    """qvz_tpu's rt.decode_cluster_prologue of each lane of a container:
+    (ids, l, u, t, consumed bits), or the status it raises with."""
+    head, tables = _tables(comp)
+    out = []
+    for i in range(lanes.first, len(head.shards)):
+        s = head.shards[i]
+        pay = bytes(comp[s.payload_off:s.payload_off + s.payload_len])
+        try:
+            out.append(rt.decode_cluster_prologue(tables, pay, s.lines,
+                                                  init_bank=lanes.bank))
+        except ValueError as e:
+            out.append(int(str(e).split()[-1]))
+    return out
+
+
+def _assert_prologues(lanes, got, host):
+    """K5p's (cl, states, flags) equal the host's prologue lane by lane:
+    the ids and (l, u, t, consumed bits) where it passes, FLAG_BAD where
+    it fails with -3 and FLAG_CLUSTER with -1."""
+    cl, states, flags = got
+    offs = np.concatenate([[0], np.cumsum(lanes.lane_counts)])
+    for w, h in enumerate(host):
+        if isinstance(h, int):
+            assert int(flags[w]) == {-3: dd.FLAG_BAD,
+                                     -1: dd.FLAG_CLUSTER}[h], f"lane {w}"
+            continue
+        assert int(flags[w]) == 0, f"lane {w}"
+        assert np.array_equal(cl[offs[w]:offs[w + 1]].numpy(), h[0]), w
+        assert states[w].tolist() == list(h[1:]), f"lane {w}"
+
+
+@pytest.mark.parametrize("n_clusters", [2, 3])
+@pytest.mark.parametrize("prime", [True, False], ids=["prime", "noprime"])
+def test_cluster_prologue_reference_matches_host(small_warmup, n_clusters,
+                                                 prime):
+    """K5p's plain version equals qvz_tpu's host prologue on every lane,
+    ragged lanes and a primed bank included; some lanes start K5
+    mid-byte."""
+    comp = _encode(_data(1043, 6, seed=60 + n_clusters), shards=5,
+                   prime=prime, n_clusters=n_clusters)
+    lanes = port.prepare_lanes(comp, "cpu")
+    assert len(set(lanes.lane_counts)) == 2
+    assert (lanes.bank is not None) == prime
+    got = dd.cluster_prologue_reference(lanes.dplan_t, lanes.pays,
+                                        lanes.lane_counts)
+    _assert_prologues(lanes, got, _host_prologues(comp, lanes))
+    assert not got[2].any() and (got[1][:, 3] % 8 != 0).any()
+    assert torch.equal(got[0], lanes.cl)
+    assert torch.equal(got[1], lanes.starts)
+
+
+def test_cluster_prologue_one_cluster_starts():
+    """With one cluster no id is decoded: each lane starts at the full
+    interval and its payload's first 22 bits (start_state)."""
+    comp = _encode(_data(600, 5, seed=62), shards=4, prime=False)
+    lanes = port.prepare_lanes(comp, "cpu")
+    cl, states, flags = dd.cluster_prologue_reference(
+        lanes.dplan_t, lanes.pays, lanes.lane_counts)
+    assert cl is None and lanes.cl is None and not flags.any()
+    assert states.tolist() == [list(dd.start_state(p))
+                               for p in _payloads(lanes)]
+
+
+def _model0_bank(tables, counts, total):
+    """A bank of counts ones and totals the cardinalities, but model 0's
+    counts and total as given (a total that is not their sum makes the
+    host's prologue fail)."""
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    moff = np.asarray(tables.model_off, dtype=np.int64)
+    bank = np.concatenate([np.ones(int(moff[-1]), dtype=np.uint32),
+                           cards.astype(np.uint32)])
+    bank[:len(counts)] = counts
+    bank[int(moff[-1])] = total
+    return bank
+
+
+def _bank_lanes(comp, bank):
+    """prepare_lanes of `comp` with its plan built from `bank`."""
+    lanes = port.prepare_lanes(comp, "cpu")
+    _, tables = _tables(comp)
+    return lanes._replace(bank=bank, dplan_t=dd.decode_plan_to_torch(
+        dd.DecodePlan(cd.LanePlan(tables, bank), tables), "cpu"))
+
+
+# model 0's (counts, total): the sum (the host passes), a total below it
+# (the tag leaves [l, u]: -3) and above it (the search passes the last
+# count: -1)
+BANKS = [([40, 40, 40], 120), ([40, 40, 40], 50), ([1, 200, 1], 8),
+         ([1, 1, 1], 1000), ([5, 1, 1], 1000)]
+
+
+def test_cluster_prologue_flags_like_the_host():
+    """Where the host's prologue fails (a bank whose model 0 total is not
+    its counts' sum), K5p's plain version flags the lane with the host's
+    reason, and decodes every other lane as the host does."""
+    comp = _encode(_data(600, 4, seed=4), shards=4, prime=False,
+                   n_clusters=3)
+    _, tables = _tables(comp)
+    seen = set()
+    for counts, total in BANKS:
+        lanes = _bank_lanes(comp, _model0_bank(tables, counts, total))
+        host = _host_prologues(comp, lanes)
+        _assert_prologues(lanes, dd.cluster_prologue_reference(
+            lanes.dplan_t, lanes.pays, lanes.lane_counts), host)
+        seen.update(h if isinstance(h, int) else 0 for h in host)
+    assert seen == {0, -1, -3}
+
+
+def test_cluster_prologue_rescales_twice():
+    """Model 0 started 24 short of 2^19 in lanes of 33,000 reads: it
+    rescales at a lane's fourth id and again about 32,768 ids later; K5p's
+    plain version equals the host's prologue through both."""
+    n, W = 66_000, 2
+    rng = np.random.default_rng(63)
+    data = _data(n, 1, seed=63)
+    clusters = rng.integers(0, 3, size=n).astype(np.uint8)
+    c0, cond = rt.stats_host(data, clusters, 3)
+    from qvz_tpu.constants import MODE_RATIO
+    tables = rt.Design(c0, cond, MODE_RATIO, 0.5, DIST).tables()
+    bank = _model0_bank(tables, [ARITH_R - 26, 1, 1], ARITH_R - 24)
+    lane_counts = [n // W] * W
+    states = np.stack([WellState.debug().state] * W).astype(np.uint32)
+    pays = []
+    for w in range(W):
+        ids = clusters[w * (n // W):(w + 1) * (n // W)]
+        md, qs, _, _ = rt.quantize_colmajor(
+            tables, np.ascontiguousarray(data[w * (n // W):(w + 1) * (n // W)]
+                                         .T), ids, states[w])
+        pays.append(rt.encode_precomputed_colmajor(tables, md, qs, ids,
+                                                   n // W, init_bank=bank))
+        tri = rt.replay_model(bank[:3], ARITH_R - 24, ids)
+        assert (tri[1:, 2] != tri[:-1, 2] + 8).sum() >= 2
+    dplan_t = dd.decode_plan_to_torch(
+        dd.DecodePlan(cd.LanePlan(tables, bank), tables), "cpu")
+    cl, st, flags = dd.cluster_prologue_reference(
+        dplan_t, dd.pack_payloads(pays, "cpu"), lane_counts)
+    assert not flags.any()
+    assert np.array_equal(cl.numpy(), clusters)
+    for w in range(W):
+        h = rt.decode_cluster_prologue(tables, pays[w], n // W,
+                                       init_bank=bank)
+        assert st[w].tolist() == list(h[1:]), f"lane {w}"
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_prologue_matches_plain():
+    """K5p equals its plain version on the card: -c 3 primed and
+    unprimed, one cluster, and the banks that make lanes fail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K5p has no CPU mode)")
+    comps = [_encode(_data(1043, 6, seed=61), shards=5, prime=p,
+                     n_clusters=k) for p, k in ((True, 3), (False, 3),
+                                                (False, 1))]
+    cases = [port.prepare_lanes(c, "cpu") for c in comps]
+    _, tables = _tables(comps[1])
+    cases += [_bank_lanes(comps[1], _model0_bank(tables, c, t))
+              for c, t in BANKS]
+    for lanes in cases:
+        want = dd.cluster_prologue_reference(lanes.dplan_t, lanes.pays,
+                                             lanes.lane_counts)
+        dplan = {k: v.cuda() if torch.is_tensor(v) else v
+                 for k, v in lanes.dplan_t.items()}
+        got = dd.cluster_prologue(dplan, dd.pack_payloads(
+            _payloads(lanes), "cuda"), lanes.lane_counts)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a.cpu(), b)

@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 from qvz_tpu.constants import DISTORTION_MSE
 from qvz_tpu.format import container_v2
 from qvz_tpu.native import runtime as rt
@@ -220,30 +221,108 @@ def lane_corpus():
 
 @decoders
 @pytest.mark.parametrize("name", sanitize.corpus_names())
+def _host_prologue_fails(blob, bank) -> list:
+    """For each lane of a container, whether qvz_tpu's host prologue
+    (rt.decode_cluster_prologue, from `bank`) fails on it."""
+    head = container_v2.parse(blob, blocks_len=None)
+    tables = rt.tables_from_blocks(blob[container_v2.header_size():],
+                                   head.cluster_count, head.columns)
+    head = container_v2.parse(blob, blocks_len=tables.consumed)
+    fails = []
+    for s in head.shards[head.priming:]:
+        pay = bytes(blob[s.payload_off:s.payload_off + s.payload_len])
+        fails.append(_outcome(lambda p: rt.decode_cluster_prologue(
+            tables, p, s.lines, init_bank=bank), pay)[0] != "ok")
+    return fails
+
+
+@decoders
+@pytest.mark.parametrize("name", sanitize.corpus_names())
 def test_lane_container_corruption(lane_corpus, decoder, name, monkeypatch):
     """Each corruption of a container with lanes has qvz_tpu's outcome
     (the checksum error where a payload byte flipped unchecked); through
     pipeline.decode it reaches the lane decoder's plain version exactly
-    where the header, directory, checksums, warmup shard and cluster-id
-    prologues pass on the host."""
+    where the header, directory, checksums and warmup shard pass on the
+    host, and the lanes handed to the host are those whose cluster-id
+    prologue fails there: K5p's plain version flags exactly the lanes on
+    which qvz_tpu's host prologue fails (none of this corpus: no
+    container's bytes make it fail, test_prologue_flags_go_to_the_host
+    makes it fail)."""
     blob = lane_corpus[name]
-    calls = []
+    calls, pro_flags = [], []
     plain = dd.decode_lanes_reference
+    prologue = dd.cluster_prologue_reference
 
     def spy(*args, **kw):
         calls.append(1)
         return plain(*args, **kw)
 
+    def pro_spy(*args, **kw):
+        res = prologue(*args, **kw)
+        pro_flags.append(res[2])
+        return res
+
     monkeypatch.setattr(dd, "decode_lanes_reference", spy)
+    monkeypatch.setattr(dd, "cluster_prologue_reference", pro_spy)
     _same(decoder, blob, "checksum" if name.endswith(":flip-payload")
           else None)
     if decoder == "lanes":
-        reaches = _outcome(lambda b: pdec.prepare_lanes(b, "cpu"),
-                           blob)[0] == "ok"
+        flags = pro_flags[:]
+        prepared = _outcome(lambda b: pdec.prepare_lanes(b, "cpu"), blob)
+        reaches = prepared[0] == "ok"
         assert bool(calls) == reaches
         if name.endswith(("flip-rechecked-1", "short-rechecked",
                           "flip-state")):
             assert reaches
+        if reaches:
+            got = (torch.cat(flags) != 0).tolist()
+            assert got == _host_prologue_fails(blob, prepared[1].bank)
+
+
+@pytest.mark.parametrize("counts,total,status",
+                         [([40, 40, 40], 50, -3), ([1, 1, 1], 1000, -1)],
+                         ids=["bad-tag", "id-past-clusters"])
+def test_prologue_flags_go_to_the_host(lane_corpus, monkeypatch, counts,
+                                       total, status):
+    """A lane whose cluster-id prologue fails on the host (a lanes' bank
+    whose model 0 total is not its counts' sum: the tag leaves [l, u], -3,
+    or an id passes the cluster count, -1) is flagged by K5p, decoded by
+    K5 in no step (its flag kept in the final state), and decoded again on
+    the host, whose error is the outcome."""
+    blob = lane_corpus["c3-s4-unprimed:flip-state"]
+    head, tables = pdec._parse(blob)
+    cards = np.asarray(tables.model_card, dtype=np.int64)
+    moff = np.asarray(tables.model_off, dtype=np.int64)
+    bank = np.concatenate([np.ones(int(moff[-1]), dtype=np.uint32),
+                           cards.astype(np.uint32)])
+    bank[:3], bank[int(moff[-1])] = counts, total
+    monkeypatch.setattr(pdec._Warmup, "bank", lambda self: bank)
+    finals, redecoded = [], []
+    plain = dd.decode_lanes_reference
+
+    def spy(*args, **kw):
+        finals.append(plain(*args, **kw))
+        return finals[-1]
+
+    host_decode = pdec.rt.decode_colmajor
+
+    def host_spy(tables, payload, *args, **kw):
+        redecoded.append(payload)
+        return host_decode(tables, payload, *args, **kw)
+
+    monkeypatch.setattr(dd, "decode_lanes_reference", spy)
+    monkeypatch.setattr(pdec.rt, "decode_colmajor", host_spy)
+    with pytest.raises(ValueError, match=f"status {status}"):
+        pdec.decode(blob, device="cpu")
+    fails = _host_prologue_fails(blob, bank)
+    assert any(fails)
+    want = dd.FLAG_BAD if status == -3 else dd.FLAG_CLUSTER
+    got = finals[0][:, 4]
+    assert [bool(f & want) for f in got.tolist()] == fails
+    pays = [bytes(blob[s.payload_off:s.payload_off + s.payload_len])
+            for s in head.shards]
+    # the first error ends the host's re-decodes (the rest are cancelled)
+    assert redecoded and all(fails[pays.index(p)] for p in redecoded)
 
 
 def test_lane_corpus_covers_the_plans(lane_corpus):
