@@ -56,17 +56,22 @@ def compress_bytes(data: bytes, *, mode: int = MODE_RATIO,
     the reference-compatible v1 container; shards=0 picks the device lane
     count and N >= 2 pins it (QVZ2). encode_kw
     (reuse_blocks, verbose, mesh) go to pipeline.encode.encode, which
-    refuses any other keyword, qvz_tpu's use_jax among them."""
+    refuses any other keyword, qvz_tpu's use_jax among them. The
+    stats' phase_seconds add ``parse``, the text's parse into reads."""
     from qvz_tpu_torch.pipeline import encode as enc_mod
     from qvz_tpu_torch.spec.pipeline import load_quality_file
+    from qvz_tpu_torch.utils.spans import span
 
+    phases: dict = {}
+    with span(phases, "parse"):
+        reads = load_quality_file(data)
     out = enc_mod.encode(
-        load_quality_file(data),
-        make_matrix(distortion, path=distortion_file),
+        reads, make_matrix(distortion, path=distortion_file),
         n_clusters=clusters, mode=mode, ratio=ratio,
         cluster_threshold=cluster_threshold,
         well_state=_well(well_seed, debug_seed), shards=shards,
         want_recon=False, prime=prime, device=device, **encode_kw)
+    out.stats.phase_seconds.update(phases)
     return out.compressed, out.stats
 
 

@@ -102,6 +102,8 @@ def load() -> ctypes.CDLL:
     lib.qvz_design_serialized_size.restype = c.c_int64
     lib.qvz_design_serialized.argtypes = [c.c_void_p, u8p]
     lib.qvz_design_serialized.restype = None
+    lib.qvz_design_stats.argtypes = [c.c_void_p, i64p]
+    lib.qvz_design_stats.restype = None
     lib.qvz_design_free.argtypes = [c.c_void_p]
     lib.qvz_design_free.restype = None
 

@@ -21,6 +21,7 @@
 // the reference (see the per-function comments).
 
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <cmath>
@@ -548,9 +549,9 @@ struct Quant {
 // dist_t is the transposed distortion matrix (dist_t[r*A+i] ==
 // dist[i*A+r]): the candidate-scan inner loop then reads contiguous
 // doubles. The i-accumulation order is unchanged, so every double
-// rounds identically to the reference.
-static void lloyd_max(const double* pmf, const double* dist,
-                      const double* dist_t, int states, Quant* out) {
+// rounds identically to the reference. Returns its iterations.
+static int lloyd_max(const double* pmf, const double* dist,
+                     const double* dist_t, int states, Quant* out) {
   int bounds[A + 1];
   int rec[A];
   bounds[0] = 0;
@@ -627,6 +628,7 @@ static void lloyd_max(const double* pmf, const double* dist,
   }
   out->out_syms.resize(states);
   for (int j = 0; j < states; ++j) out->out_syms[j] = static_cast<uint8_t>(rec[j]);
+  return iter;
 }
 
 // Entropy of the quantized pmf, ascending-index accumulation over the full
@@ -648,6 +650,16 @@ static double entropy_of(const double* pmf) {
   }
   return h;
 }
+
+// What a design did: its time outside the context sweeps, and the
+// Lloyd-Max iterations of every quantizer it designed, of which
+// `lloyd_discarded_iters` went to speculative candidates never consulted.
+// Each cluster fills its own; no field is written by two threads.
+struct DesignStats {
+  int64_t serial_ns = 0;
+  int64_t lloyd_iters = 0;
+  int64_t lloyd_discarded_iters = 0;
+};
 
 // One state-count sweep task: a context pmf + entropy target, producing
 // the reference-identical (lo, hi, ratio) selection.
@@ -671,34 +683,38 @@ struct SweepTask {
 // contexts << threads (high-rate designs: few contexts, deep sweeps —
 // the -c 4 -f 0.85 worst case that motivated it).
 // Reference-exact sequential sweep for one task (codebook.c:230-269).
-static void sweep_one(SweepTask& t, const double* dist,
-                      const double* dist_t) {
+// Returns the Lloyd-Max iterations of its designs.
+static int64_t sweep_one(SweepTask& t, const double* dist,
+                         const double* dist_t) {
   if (t.target == 0.0) {
-    lloyd_max(t.pmf, dist, dist_t, 1, t.lo);
-    lloyd_max(t.pmf, dist, dist_t, 1, t.hi);
+    int64_t iters = lloyd_max(t.pmf, dist, dist_t, 1, t.lo);
+    iters += lloyd_max(t.pmf, dist, dist_t, 1, t.hi);
     t.ratio = 1.0;
-    return;
+    return iters;
   }
   int states = 1;
-  lloyd_max(t.pmf, dist, dist_t, states, t.hi);
+  int64_t iters = lloyd_max(t.pmf, dist, dist_t, states, t.hi);
   double hi_h = quantized_entropy(*t.hi, t.pmf);
   double lo_h = hi_h;
   for (;;) {
     *t.lo = *t.hi;
     lo_h = hi_h;
     ++states;
-    lloyd_max(t.pmf, dist, dist_t, states, t.hi);
+    iters += lloyd_max(t.pmf, dist, dist_t, states, t.hi);
     hi_h = quantized_entropy(*t.hi, t.pmf);
     if (!(hi_h < t.target && states < A)) break;
   }
   if (hi_h < t.target) t.ratio = 0.0;
   else if (lo_h >= t.target || hi_h == lo_h) t.ratio = 1.0;
   else t.ratio = (t.target - hi_h) / (lo_h - hi_h);
+  return iters;
 }
 
+// The iterations add up in `st`: per task or per candidate slot while
+// threads run, summed after they join.
 static void speculative_sweep(std::vector<SweepTask>& tasks,
                               const double* dist, const double* dist_t,
-                              bool threaded) {
+                              bool threaded, DesignStats& st) {
   size_t n = tasks.size();
   unsigned hw = std::thread::hardware_concurrency();
   if (!hw) hw = 1;
@@ -706,8 +722,10 @@ static void speculative_sweep(std::vector<SweepTask>& tasks,
   // the classic schedule — every context runs its own sequential sweep,
   // dynamically load-balanced, no barriers — is strictly better.
   if (!threaded || n >= hw) {
+    std::vector<int64_t> iters(n);
     parallel_for(n, threaded,
-                 [&](size_t i) { sweep_one(tasks[i], dist, dist_t); });
+                 [&](size_t i) { iters[i] = sweep_one(tasks[i], dist, dist_t); });
+    for (int64_t it : iters) st.lloyd_iters += it;
     return;
   }
 
@@ -718,13 +736,14 @@ static void speculative_sweep(std::vector<SweepTask>& tasks,
     bool done = false;
   };
   std::vector<Prog> prog(n);
+  std::vector<int64_t> first_iters(n);
 
   // states = 1 for every task (terminal when target == 0: the
   // reference designs the 1-state quantizer twice into lo and hi).
   parallel_for(n, threaded, [&](size_t i) {
     SweepTask& t = tasks[i];
     Prog& p = prog[i];
-    lloyd_max(t.pmf, dist, dist_t, 1, &p.last_q);
+    first_iters[i] = lloyd_max(t.pmf, dist, dist_t, 1, &p.last_q);
     p.last = 1;
     p.last_h = quantized_entropy(p.last_q, t.pmf);
     if (t.target == 0.0) {
@@ -734,6 +753,7 @@ static void speculative_sweep(std::vector<SweepTask>& tasks,
       p.done = true;
     }
   });
+  for (int64_t it : first_iters) st.lloyd_iters += it;
 
   std::vector<size_t> live;
   for (size_t i = 0; i < n; ++i) {
@@ -758,9 +778,10 @@ static void speculative_sweep(std::vector<SweepTask>& tasks,
     }
     std::vector<Quant> q(cands.size());
     std::vector<double> h(cands.size());
+    std::vector<int64_t> iters(cands.size());
     parallel_for(cands.size(), threaded, [&](size_t ci) {
-      lloyd_max(tasks[cands[ci].task].pmf, dist, dist_t, cands[ci].states,
-                &q[ci]);
+      iters[ci] = lloyd_max(tasks[cands[ci].task].pmf, dist, dist_t,
+                            cands[ci].states, &q[ci]);
       h[ci] = quantized_entropy(q[ci], tasks[cands[ci].task].pmf);
     });
     // Replay the reference loop over this wave's candidates in order.
@@ -770,7 +791,11 @@ static void speculative_sweep(std::vector<SweepTask>& tasks,
       Prog& p = prog[i];
       SweepTask& t = tasks[i];
       for (; ci < cands.size() && cands[ci].task == i; ++ci) {
-        if (p.done) continue;
+        st.lloyd_iters += iters[ci];
+        if (p.done) {
+          st.lloyd_discarded_iters += iters[ci];
+          continue;
+        }
         int s = cands[ci].states;
         if (!(h[ci] < t.target && s < A)) {
           double lo_h = p.last_h, hi_h = h[ci];
@@ -839,11 +864,14 @@ static void renormalize(double* p, size_t n) {
 // Full per-cluster design (codebook.c:355-468). Sequential over columns;
 // the compute_qpmf_list inner x-sum is hoisted out of the idx loop, which
 // is bit-exact because the summand only depends on (j, k) and the += order
-// over j per output cell is unchanged.
+// over j per output cell is unchanged. `st` gets the steady-clock time
+// outside the context sweeps and the sweeps' Lloyd-Max iterations.
 static std::vector<ColumnDesign> design_cluster(
     const uint64_t* counts0, const uint64_t* cond_counts, int columns,
-    int mode, double opt_ratio, const double* dist,
-    bool threaded = true) {
+    int mode, double opt_ratio, const double* dist, bool threaded,
+    DesignStats& st) {
+  using clock = std::chrono::steady_clock;
+  const clock::time_point start = clock::now();
   std::vector<ColumnDesign> books(columns);
 
   // Transposed distortion for the Lloyd-Max inner loop (see lloyd_max).
@@ -851,6 +879,12 @@ static std::vector<ColumnDesign> design_cluster(
   for (int i = 0; i < A; ++i) {
     for (int r = 0; r < A; ++r) dist_t[static_cast<size_t>(r) * A + i] = dist[static_cast<size_t>(i) * A + r];
   }
+  clock::duration in_sweeps{0};
+  auto sweep = [&](std::vector<SweepTask>& tasks) {
+    const clock::time_point a = clock::now();
+    speculative_sweep(tasks, dist, dist_t.data(), threaded, st);
+    in_sweeps += clock::now() - a;
+  };
 
   // Marginal column pmfs via the chained total-probability recursion
   // (codebook.c:208-218): acc = 1.0*acc + w_j * P(.|j), j ascending.
@@ -877,7 +911,7 @@ static std::vector<ColumnDesign> design_cluster(
   b0.hi.resize(1);
   std::vector<SweepTask> t0(1);
   t0[0] = {pmf0, target, &b0.lo[0], &b0.hi[0], 1.0};
-  speculative_sweep(t0, dist, dist_t.data(), threaded);
+  sweep(t0);
   double ratio = t0[0].ratio;
   b0.lo[0].ratio = ratio;
   b0.hi[0].ratio = 1 - ratio;
@@ -1002,7 +1036,7 @@ static std::vector<ColumnDesign> design_cluster(
                                : opt_ratio;
       tasks[uj] = {xpmf[j].data(), tgt, &b.lo[j], &b.hi[j], 1.0};
     }
-    speculative_sweep(tasks, dist, dist_t.data(), threaded);
+    sweep(tasks);
     for (size_t uj = 0; uj < uniq.size(); ++uj) {
       size_t j = uniq[uj];
       double rj = tasks[uj].ratio;
@@ -1023,6 +1057,8 @@ static std::vector<ColumnDesign> design_cluster(
     prev_qpmf = std::move(qpmf);
   }
 
+  st.serial_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                      clock::now() - start - in_sweeps).count();
   return books;
 }
 
@@ -1371,6 +1407,7 @@ struct QvzDesign {
   std::vector<std::vector<ColumnDesign>> books;
   std::string serialized;
   uint32_t columns = 0;
+  DesignStats stats;  // summed over the clusters
 };
 
 void* qvz_design_create(const uint64_t* counts0,      // [n_clusters*72]
@@ -1384,12 +1421,18 @@ void* qvz_design_create(const uint64_t* counts0,      // [n_clusters*72]
   // Clusters are fully independent; thread across them when there are
   // several, else across contexts inside each column.
   bool outer = n_clusters >= std::thread::hardware_concurrency();
+  std::vector<DesignStats> stats(n_clusters);
   parallel_for(n_clusters, outer, [&](size_t c) {
     d->books[c] = design_cluster(counts0 + c * A,
                                  cond_counts + c * cond_stride,
                                  static_cast<int>(columns), mode, ratio,
-                                 dist, /*threaded=*/!outer);
+                                 dist, /*threaded=*/!outer, stats[c]);
   });
+  for (const DesignStats& s : stats) {
+    d->stats.serial_ns += s.serial_ns;
+    d->stats.lloyd_iters += s.lloyd_iters;
+    d->stats.lloyd_discarded_iters += s.lloyd_discarded_iters;
+  }
   for (uint32_t c = 0; c < n_clusters; ++c) {
     serialize_books(d->books[c], &d->serialized);
   }
@@ -1403,6 +1446,13 @@ int64_t qvz_design_serialized_size(void* h) {
 void qvz_design_serialized(void* h, uint8_t* out) {
   QvzDesign* d = static_cast<QvzDesign*>(h);
   std::memcpy(out, d->serialized.data(), d->serialized.size());
+}
+
+void qvz_design_stats(void* h, int64_t* out) {
+  const DesignStats& s = static_cast<QvzDesign*>(h)->stats;
+  out[0] = s.serial_ns;
+  out[1] = s.lloyd_iters;
+  out[2] = s.lloyd_discarded_iters;
 }
 
 void qvz_design_free(void* h) { delete static_cast<QvzDesign*>(h); }

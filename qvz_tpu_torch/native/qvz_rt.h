@@ -24,6 +24,10 @@ void* qvz_design_create(const uint64_t* counts0, const uint64_t* cond_counts,
                         double ratio, const double* dist);
 int64_t qvz_design_serialized_size(void* h);
 void qvz_design_serialized(void* h, uint8_t* out);
+// out[3]: the design's nanoseconds outside the context sweeps (summed
+// over clusters), its Lloyd-Max iterations, and those of speculative
+// candidates it discarded.
+void qvz_design_stats(void* h, int64_t* out);
 void qvz_design_free(void* h);
 
 // --- coding tables --------------------------------------------------------

@@ -15,6 +15,7 @@ from qvz_tpu_torch.spec import kmeans as spec_kmeans
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 _dp = ctypes.POINTER(ctypes.c_double)
 
 
@@ -139,6 +140,19 @@ class Design:
         out = np.empty(n, dtype=np.uint8)
         self._lib.qvz_design_serialized(self._h, _ptr(out, _u8p))
         return out.tobytes()
+
+    def stats(self) -> dict:
+        """What the design did: ``serial_s``, its steady-clock seconds
+        outside the context sweeps, summed over the clusters (with the
+        clusters designed on threads at once, the sum can pass the wall
+        time); ``lloyd_iters``, the Lloyd-Max iterations of every
+        quantizer it designed; ``lloyd_discarded_iters``, those of the
+        speculative candidates it threw away unread. The counts are the
+        same for the same input on the same number of cores."""
+        out = np.zeros(3, dtype=np.int64)
+        self._lib.qvz_design_stats(self._h, _ptr(out, _i64p))
+        return dict(serial_s=int(out[0]) / 1e9, lloyd_iters=int(out[1]),
+                    lloyd_discarded_iters=int(out[2]))
 
     def tables(self) -> Tables:
         h = self._lib.qvz_tables_from_design(self._h)

@@ -15,8 +15,9 @@
 //      (the streamed and multi-host k-means), merged as exact integers;
 //   2. qvz_well_jump (racing on the once-built power table) and
 //      qvz_well_draws7 from concurrent threads;
-//   3. qvz_design_create (its parallel_for), the tables from the design
-//      and from the serialized blocks (the decoder's tables);
+//   3. qvz_design_create (its parallel_for), its qvz_design_stats, the
+//      tables from the design and from the serialized blocks (the
+//      decoder's tables);
 //   4. the tables' accessors, the folded qvz_tables_ctx2 and
 //      qvz_tables_qsv among them, read by several threads and held
 //      against a fold recomputed here;
@@ -229,6 +230,24 @@ int main() {
   const uint64_t bank_words = qvz_tables_bank_words(dec_tb);
   CHECK(bank_words == qvz_tables_bank_words(enc_tb));
   std::printf("design (threaded), tables from design and blocks: ok\n");
+  {
+    // The design's counters, summed from its threads: a second design of
+    // the input counts the same and serializes the same blocks.
+    int64_t first[3], second[3];
+    qvz_design_stats(design, first);
+    void* again = qvz_design_create(c0.data(), cc.data(), kClusters, kCols,
+                                    /*MODE_RATIO=*/0, 0.5, dist.data());
+    qvz_design_stats(again, second);
+    std::vector<uint8_t> blocks2(qvz_design_serialized_size(again));
+    qvz_design_serialized(again, blocks2.data());
+    CHECK(first[0] >= 0 && first[1] > 0 && first[2] <= first[1]);
+    CHECK(first[1] == second[1] && first[2] == second[2]);
+    CHECK(blocks2 == blocks);
+    qvz_design_free(again);
+    std::printf("design stats: ok (%lld Lloyd-Max iterations, %lld "
+                "discarded)\n", static_cast<long long>(first[1]),
+                static_cast<long long>(first[2]));
+  }
 
   // 4. The tables' accessors, read by several threads at once; the
   //    folded ctx2 and qsv against a fold recomputed from the plain maps.

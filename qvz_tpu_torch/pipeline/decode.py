@@ -27,7 +27,7 @@ a device buffer, so the rows need no assembly on the host. ``stats`` also
 gets ``lanes``, ``waves`` and ``fallback_lanes``: the lanes K5p or K5
 flagged, decoded again on the host. K5 takes every plan
 (``launch_shape``'s layouts) and K5p and K5 decode every rescale, so only
-a corrupt lane goes to the host.
+a corrupt lane goes to the host. Each phase is a ``utils.spans.span``.
 
 v1 containers, row-major QVZ2 and single-shard QVZ2 have no lanes: they
 go to the port's host decoder (``pipeline/host.py``), as ``qvz_tpu``
@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
@@ -53,6 +52,7 @@ from qvz_tpu_torch.pipeline import host
 from qvz_tpu_torch.pipeline.host import (_malformed_raises_valueerror,
                                          _parsing, _sane_output_size,
                                          _shard_draws)
+from qvz_tpu_torch.utils.spans import span
 
 # Host and device bytes of draws and text rows that one wave of lanes
 # holds; at 1M x 100 (201 MB) the whole file is one wave.
@@ -144,10 +144,6 @@ def _workers() -> int:
     return min(8, os.cpu_count() or 1)
 
 
-def _add(ph: dict, phase: str, secs: float) -> None:
-    ph[phase] = ph.get(phase, 0.0) + secs
-
-
 def _waves(head) -> list[range]:
     """The lanes' shards in runs, each run's draws and text (lines x
     (2 x cols + 1) bytes) within WAVE_BYTES, at least one shard a run."""
@@ -203,38 +199,34 @@ def _prepare(compressed, head, tables, out, dev, ph, wave: range,
     """Everything before K5 for the lanes of the shards in `wave`; the
     phases' seconds add up in `ph`. dplan_t is the decode plan's tables on
     `dev`, built here from the warmup bank where None."""
-    t0 = time.perf_counter()
     cols = head.columns
     shards = [head.shards[i] for i in wave]
-    with ThreadPoolExecutor(max_workers=_workers()) as ex:
-        pays = list(ex.map(lambda i: _payload(compressed, head, i), wave))
-    t1 = time.perf_counter()
-    _add(ph, "parse", t1 - t0)
+    with span(ph, "parse"):
+        with ThreadPoolExecutor(max_workers=_workers()) as ex:
+            pays = list(ex.map(lambda i: _payload(compressed, head, i),
+                               wave))
 
-    lane_counts = [s.lines for s in shards]
-    states = np.stack([_well(s) for s in shards])
-    draws = _shard_draws(states, lane_counts, cols)
-    t2 = time.perf_counter()
-    _add(ph, "draws", t2 - t1)
+    with span(ph, "draws"):
+        lane_counts = [s.lines for s in shards]
+        states = np.stack([_well(s) for s in shards])
+        draws = _shard_draws(states, lane_counts, cols)
 
-    draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
-    del draws
-    lane_pays = decoder_device.pack_payloads(pays, dev)
-    synchronize(dev)
-    t3 = time.perf_counter()
-    _add(ph, "h2d", t3 - t2)
-    bank = warm.bank()
-    t4 = time.perf_counter()
-    _add(ph, "warmup", t4 - t3)
+    with span(ph, "h2d"):
+        draws_t = torch.from_numpy(draws).to(dev).t().contiguous()
+        del draws
+        lane_pays = decoder_device.pack_payloads(pays, dev)
+        synchronize(dev)
+    with span(ph, "warmup"):
+        bank = warm.bank()
 
-    if dplan_t is None:
-        dplan_t = decoder_device.decode_plan_to_torch(
-            decoder_device.DecodePlan(coder_device.LanePlan(tables, bank),
-                                      tables), dev)
-    cl, starts, start_flags = decoder_device.cluster_prologue(
-        dplan_t, lane_pays, lane_counts)
-    synchronize(dev)
-    _add(ph, "prologue", time.perf_counter() - t4)
+    with span(ph, "prologue"):
+        if dplan_t is None:
+            dplan_t = decoder_device.decode_plan_to_torch(
+                decoder_device.DecodePlan(
+                    coder_device.LanePlan(tables, bank), tables), dev)
+        cl, starts, start_flags = decoder_device.cluster_prologue(
+            dplan_t, lane_pays, lane_counts)
+        synchronize(dev)
     return Lanes(dplan_t, lane_pays, draws_t, cl, lane_counts, starts, bank,
                  wave.start, start_flags)
 
@@ -255,29 +247,26 @@ def _decode_lanes(compressed, head, tables, out, dev, st) -> None:
             lanes = _prepare(compressed, head, tables, out, dev, ph, wave,
                              warm, dplan_t)
             dplan_t = lanes.dplan_t
-            t0 = time.perf_counter()
-            rows = torch.from_numpy(out[offs[wave.start]:offs[wave.stop]])
-            dst = rows if dev.type == "cpu" else torch.empty(
-                rows.shape, dtype=torch.uint8, device=dev)
-            final = decoder_device.decode_lanes_t(
-                lanes.dplan_t, lanes.pays, lanes.draws_t, lanes.cl,
-                lanes.lane_counts, 0, lanes.starts, dst, sym_add=33,
-                start_flags=lanes.start_flags)
-            synchronize(dev)
-            t1 = time.perf_counter()
-            _add(ph, "decoder", t1 - t0)
+            with span(ph, "decoder"):
+                rows = torch.from_numpy(
+                    out[offs[wave.start]:offs[wave.stop]])
+                dst = rows if dev.type == "cpu" else torch.empty(
+                    rows.shape, dtype=torch.uint8, device=dev)
+                final = decoder_device.decode_lanes_t(
+                    lanes.dplan_t, lanes.pays, lanes.draws_t, lanes.cl,
+                    lanes.lane_counts, 0, lanes.starts, dst, sym_add=33,
+                    start_flags=lanes.start_flags)
+                synchronize(dev)
 
-            if dst is not rows:
-                rows.copy_(dst)
-            flags = final[:, 4].cpu().numpy() != 0
-            host_shards.extend(wave.start + np.flatnonzero(flags))
-            _add(ph, "d2h", time.perf_counter() - t1)
+            with span(ph, "d2h"):
+                if dst is not rows:
+                    rows.copy_(dst)
+                flags = final[:, 4].cpu().numpy() != 0
+                host_shards.extend(wave.start + np.flatnonzero(flags))
             del lanes, dst, final
         bank = warm.bank()
     finally:
         warm.join()
-
-    t2 = time.perf_counter()
 
     def redecode(i):
         rt.decode_colmajor(tables, _payload(compressed, head, i),
@@ -285,9 +274,9 @@ def _decode_lanes(compressed, head, tables, out, dev, st) -> None:
                            out=out[offs[i]:offs[i + 1]].reshape(-1),
                            init_bank=bank)
 
-    with ThreadPoolExecutor(max_workers=_workers()) as ex:
-        list(ex.map(redecode, host_shards))
-    ph["redecode"] = time.perf_counter() - t2
+    with span(ph, "redecode"):
+        with ThreadPoolExecutor(max_workers=_workers()) as ex:
+            list(ex.map(redecode, host_shards))
     st["lanes"] = len(shards) - (1 if head.priming else 0)
     st["waves"] = len(waves)
     st["fallback_lanes"] = len(host_shards)

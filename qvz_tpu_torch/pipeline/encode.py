@@ -20,7 +20,26 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
   code         everything after quantize: lane coding, distortion and
                container assembly
 
-Device phases end in a synchronise, so each time covers its device work.
+and, inside them (all but design_serial for QVZ2 only):
+
+  design_serial  the design's time outside its threaded context sweeps
+                 (``rt.Design.stats``), summed over the clusters; none
+                 with reuse_blocks
+  jump           the GF(2) jump-ahead of every shard's WELL start state,
+                 one thread (``shard_plan``); in draws
+  fill           the threaded dither draws (``_shard_draws``); in draws
+  warmup_prep    the warmup shard's quantize and primed bank on the host,
+                 before any lane launches; in device_code
+  warmup_wait    the wait for the warmup shard's coder thread after the
+                 last lane is fetched; in device_code
+  container      the shard states and the container's assembly; in code
+
+Each phase is a ``utils.spans.span``: under a torch profiler also a range
+``qvz.<phase>`` on the profiler's clock. ``EncodeStats.counters`` holds
+``h2d_bytes``, the bytes copied to the devices (the reads, the draws and
+the lane plan), and the design's ``lloyd_iters`` and
+``lloyd_discarded_iters``. Device phases end in a synchronise, so each
+time covers its device work.
 Every encode runs its device phases on blocks of reads
 (``parallel/sharded.py``): one block on `device`, or with a mesh one
 contiguous block a mesh entry, cut at shard boundaries, the k-means and
@@ -36,7 +55,6 @@ the design, as ``qvz_tpu``'s device path does.
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 import torch
@@ -52,6 +70,11 @@ from qvz_tpu_torch.pipeline import host
 from qvz_tpu_torch.pipeline.host import (EncodeOutput, EncodeStats,
                                          _shard_draws, shard_counts,
                                          shard_plan)
+from qvz_tpu_torch.utils.spans import span
+
+# the phases that run on the device, transfers included
+# (``EncodeStats.device_seconds``)
+DEVICE_PHASES = ("h2d", "cluster", "stats", "quantize", "device_code", "d2h")
 
 
 def device_lane_count(n: int) -> int:
@@ -95,97 +118,98 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
     if well_state is None:
         well_state = WellState.debug()
     st = EncodeStats(lines=n, columns=columns)
-    ph, dv = st.phase_seconds, st.device_seconds
+    ph = st.phase_seconds
     if shards == 1:
         bounds = sharded.even_bounds(n, len(devices))
     else:
         counts, prime_on = shard_counts(n, columns, shards, prime)
         bounds = sharded.lane_bounds(np.cumsum([0] + counts),
                                      int(prime_on), len(devices))
+    # the phases that ran no device work stay out of device_seconds
+    on_host = set() if n_clusters > 1 else {"cluster"}
 
-    t0 = time.perf_counter()
-    blocks = sharded.upload(devices, data, bounds)
-    sharded.synchronize_all(blocks)
-    t1 = time.perf_counter()
-    ph["h2d"] = dv["h2d"] = t1 - t0
+    with span(ph, "h2d"):
+        blocks = sharded.upload(devices, data, bounds)
+        sharded.synchronize_all(blocks)
+    st.counters["h2d_bytes"] = data.nbytes
 
     clusters = None
-    if n_clusters > 1:
-        sharded.cluster(blocks, data, n_clusters, cluster_threshold,
-                        verbose=verbose)
-        clusters = np.concatenate([b.clusters.cpu().numpy()
-                                   for b in blocks])
-        dv["cluster"] = time.perf_counter() - t1
-    t2 = time.perf_counter()
-    ph["cluster"] = t2 - t1
+    with span(ph, "cluster"):
+        if n_clusters > 1:
+            sharded.cluster(blocks, data, n_clusters, cluster_threshold,
+                            verbose=verbose)
+            clusters = np.concatenate([b.clusters.cpu().numpy()
+                                       for b in blocks])
     if verbose:
-        print(f"Clustering took {t2 - t1:.4f} seconds")
+        print(f"Clustering took {ph['cluster']:.4f} seconds")
 
     if reuse_blocks is not None:
-        tables = rt.tables_from_blocks(reuse_blocks, n_clusters, columns)
-        books = reuse_blocks[:tables.consumed]
-        t4 = time.perf_counter()
+        on_host.add("stats")
         ph["stats"] = 0.0
-        ph["design"] = t4 - t2
+        with span(ph, "design"):
+            tables = rt.tables_from_blocks(reuse_blocks, n_clusters, columns)
+            books = reuse_blocks[:tables.consumed]
     else:
-        counts0, cond = sharded.conditional_counts(blocks, n_clusters)
-        counts0, cond = counts0.cpu().numpy(), cond.cpu().numpy()
-        t3 = time.perf_counter()
-        ph["stats"] = dv["stats"] = t3 - t2
-
-        design = rt.Design(counts0, cond, mode, ratio, dist_matrix)
-        books = design.serialized()
-        tables = design.tables()
-        t4 = time.perf_counter()
-        ph["design"] = t4 - t3
+        with span(ph, "stats"):
+            counts0, cond = sharded.conditional_counts(blocks, n_clusters)
+            counts0, cond = counts0.cpu().numpy(), cond.cpu().numpy()
+        with span(ph, "design"):
+            design = rt.Design(counts0, cond, mode, ratio, dist_matrix)
+            books = design.serialized()
+            tables = design.tables()
         if verbose:
-            print(f"Stats and codebook generation took {t4 - t2:.4f} "
-                  "seconds")
+            print("Stats and codebook generation took "
+                  f"{ph['stats'] + ph['design']:.4f} seconds")
+        ds = design.stats()
+        ph["design_serial"] = ds.pop("serial_s")
+        st.counters.update(ds)
 
     if shards == 1:
-        compressed, payload_bytes, recon, dist_sum = host.encode_v1(
-            tables, books, data, clusters, n_clusters, well_state,
-            dist_matrix, want_recon, verbose)
-        ph["code"] = time.perf_counter() - t4
+        with span(ph, "code"):
+            compressed, payload_bytes, recon, dist_sum = host.encode_v1(
+                tables, books, data, clusters, n_clusters, well_state,
+                dist_matrix, want_recon, verbose)
         return _output(compressed, payload_bytes, recon, dist_sum,
-                       clusters, st)
+                       clusters, st, on_host)
 
-    counts, states, offs, prime_on = shard_plan(n, columns, shards, prime,
-                                                well_state)
-    draws = _shard_draws(states, counts, columns)
-    t5 = time.perf_counter()
-    ph["draws"] = t5 - t4
+    with span(ph, "draws"):
+        with span(ph, "jump"):
+            counts, states, offs, prime_on = shard_plan(
+                n, columns, shards, prime, well_state)
+        with span(ph, "fill"):
+            draws = _shard_draws(states, counts, columns)
 
-    draws_t = [torch.from_numpy(draws[b.lo:b.hi]).to(b.device).t()
-               .contiguous() for b in blocks]
-    sharded.synchronize_all(blocks)
-    t6 = time.perf_counter()
-    ph["h2d"] += t6 - t5
-    dv["h2d"] += t6 - t5
+    with span(ph, "h2d"):
+        draws_t = [torch.from_numpy(draws[b.lo:b.hi]).to(b.device).t()
+                   .contiguous() for b in blocks]
+        sharded.synchronize_all(blocks)
+    st.counters["h2d_bytes"] += draws.nbytes
 
-    quant = sharded.quantize_blocks(blocks, tables, draws_t)
-    del draws_t
-    sharded.synchronize_all(blocks)
-    t7 = time.perf_counter()
-    ph["quantize"] = dv["quantize"] = t7 - t6
+    with span(ph, "quantize"):
+        quant = sharded.quantize_blocks(blocks, tables, draws_t)
+        del draws_t
+        sharded.synchronize_all(blocks)
 
-    payloads, dist_sum, recon = _code_shards(
-        tables, data, blocks, quant, clusters, states, counts, offs,
-        prime_on, dist_matrix, want_recon, st)
-
-    shard_states = [np.asarray(states[s], dtype="<u4").tobytes()
-                    for s in range(len(counts))]
-    compressed = container_v2.build(
-        books, n_clusters, columns, n, counts, shard_states, payloads,
-        priming=1 if prime_on else 0)
-    ph["code"] = time.perf_counter() - t7
+    with span(ph, "code"):
+        payloads, dist_sum, recon = _code_shards(
+            tables, data, blocks, quant, clusters, states, counts, offs,
+            prime_on, dist_matrix, want_recon, st)
+        with span(ph, "container"):
+            shard_states = [np.asarray(states[s], dtype="<u4").tobytes()
+                            for s in range(len(counts))]
+            compressed = container_v2.build(
+                books, n_clusters, columns, n, counts, shard_states,
+                payloads, priming=1 if prime_on else 0)
     return _output(compressed, sum(len(p) for p in payloads), recon,
-                   dist_sum, clusters, st)
+                   dist_sum, clusters, st, on_host)
 
 
 def _output(compressed, payload_bytes, recon, dist_sum, clusters,
-            st) -> EncodeOutput:
+            st, on_host) -> EncodeOutput:
     n, columns = st.lines, st.columns
+    st.device_seconds.update(
+        (k, st.phase_seconds[k]) for k in DEVICE_PHASES
+        if k in st.phase_seconds and k not in on_host)
     st.payload_bytes = payload_bytes
     st.rate = (payload_bytes * 8.0) / (float(n) * columns)
     st.distortion = dist_sum / n
@@ -203,9 +227,31 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
     cluster (each block's lanes code its own ids on its device,
     ``b.clusters``).
     Returns (payloads, distortion sum, recon)."""
-    ph, dv = st.phase_seconds, st.device_seconds
+    ph = st.phase_seconds
     columns = data.shape[1]
-    t0 = time.perf_counter()
+    with span(ph, "device_code"):
+        payloads = _code_lanes(tables, data, blocks, quant, clusters,
+                               states, counts, offs, prime_on, st)
+
+    if want_recon:
+        with span(ph, "d2h"):
+            recon = np.concatenate([qv.to(torch.uint8).cpu().numpy().T
+                                    for _, _, qv in quant])
+        dist_sum = float(
+            dist_matrix[data.reshape(-1), recon.reshape(-1)].sum()
+        ) / columns
+    else:
+        recon = None
+        dist_sum = sum(quantize.distortion_device(b.data_t, qv, dist_matrix)
+                       for b, (_, _, qv) in zip(blocks, quant)) / columns
+    return payloads, dist_sum, recon
+
+
+def _code_lanes(tables, data, blocks, quant, clusters, states, counts, offs,
+                prime_on, st) -> list:
+    """The shards' payloads, the warmup shard's first: its host thread
+    runs while the blocks' lanes code on their devices."""
+    ph = st.phase_seconds
     first = 1 if prime_on else 0
     bank = None
     warmup_thread = None
@@ -214,11 +260,12 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
         # The primed bank follows from the warmup shard's quantize
         # decisions alone, so its payload is coded in a host thread
         # while the device codes the lanes.
-        w_n = int(counts[0])
-        w_cl = clusters[:w_n] if clusters is not None else None
-        md0, qs0, _, _ = rt.quantize_colmajor(
-            tables, np.ascontiguousarray(data[:w_n].T), w_cl, states[0])
-        bank = rt.bank_from_stream(tables, md0, qs0, w_cl, w_n)
+        with span(ph, "warmup_prep"):
+            w_n = int(counts[0])
+            w_cl = clusters[:w_n] if clusters is not None else None
+            md0, qs0, _, _ = rt.quantize_colmajor(
+                tables, np.ascontiguousarray(data[:w_n].T), w_cl, states[0])
+            bank = rt.bank_from_stream(tables, md0, qs0, w_cl, w_n)
 
         def _code_warmup():
             warmup_out[0] = rt.encode_precomputed_colmajor(
@@ -238,7 +285,7 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
     plans: dict = {}
     lane_pays: list = [None] * len(lane_counts)
     flags = np.zeros(len(lane_counts), dtype=bool)
-    d2h = 0.0
+    ph["d2h"] = 0.0
     try:
         # every block's lanes launched before the first is fetched
         raws = []
@@ -248,6 +295,10 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
                 continue
             if b.device not in plans:
                 plans[b.device] = coder_device.plan_to_torch(plan, b.device)
+                st.counters["h2d_bytes"] += sum(
+                    v.numel() * v.element_size()
+                    for v in plans[b.device].values()
+                    if isinstance(v, torch.Tensor))
             raws.append(coder_device.code_lanes(
                 plans[b.device], mid, qs, lane_counts[w0:w1], base,
                 b.clusters))
@@ -255,29 +306,12 @@ def _code_shards(tables, data, blocks, quant, clusters, states, counts,
             if raw is not None:
                 lane_pays[w0:w1], flags[w0:w1], secs = \
                     coder_device.finish_lanes(raw)
-                d2h += secs
+                ph["d2h"] += secs
     finally:
         if warmup_thread is not None:
-            warmup_thread.join()
-    t1 = time.perf_counter()
-    ph["device_code"] = dv["device_code"] = t1 - t0
-    ph["d2h"] = dv["d2h"] = d2h
+            with span(ph, "warmup_wait"):
+                warmup_thread.join()
     # qvz_tpu's field: K2 codes every lane, so none goes to the host
     # (finish_lanes raises where one could not be coded)
     st.coder_fallback_lanes = int(flags.sum())
-
-    t2 = time.perf_counter()
-    if want_recon:
-        recon = np.concatenate([qv.to(torch.uint8).cpu().numpy().T
-                                for _, _, qv in quant])
-        ph["d2h"] += time.perf_counter() - t2
-        dv["d2h"] = ph["d2h"]
-        dist_sum = float(
-            dist_matrix[data.reshape(-1), recon.reshape(-1)].sum()
-        ) / columns
-    else:
-        recon = None
-        dist_sum = sum(quantize.distortion_device(b.data_t, qv, dist_matrix)
-                       for b, (_, _, qv) in zip(blocks, quant)) / columns
-    payloads = ([warmup_out[0]] if prime_on else []) + lane_pays
-    return payloads, dist_sum, recon
+    return ([warmup_out[0]] if prime_on else []) + lane_pays

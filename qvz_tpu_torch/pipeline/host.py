@@ -49,6 +49,9 @@ class EncodeStats:
     # Device-coder lanes re-coded on the host (a rescaling column model
     # or an oversize emission).
     coder_fallback_lanes: int = 0
+    # Counts the device encode takes where the work happens: h2d_bytes,
+    # lloyd_iters, lloyd_discarded_iters (pipeline/encode.py).
+    counters: dict = field(default_factory=dict)
 
 
 @dataclass
