@@ -12,10 +12,10 @@ Illumina-like quality scores made from seed 42, -f 0.5, MSE, --shards 0
 Phases:
 
   0. the card (nvidia-smi name and power limit), torch, CUDA and nvcc
-  1. build the eleven kernels (csrc/quantize.cu K1, csrc/coder.cu K2a,
+  1. build the twelve kernels (csrc/quantize.cu K1, csrc/coder.cu K2a,
      K2b and K2s, csrc/hist.cu K3, csrc/kmeans.cu K4, csrc/decoder.cu K5
-     and K5p, and the microbenchmark's issue, mix and selmix in
-     csrc/microbench.cu) from
+     and K5p, csrc/well.cu KW, and the microbenchmark's issue, mix and
+     selmix in csrc/microbench.cu) from
      the sources for sm_90a, one nvcc per source in parallel, with the
      ptxas report
   2. the input; device statistics (K3, one cluster) checked equal to the
@@ -200,6 +200,18 @@ Phases:
      compute-sanitizer runs (memcheck, racecheck, synccheck, initcheck)
      are not part of this phase: the tool refuses a card inside a gVisor
      sandbox ("Device not supported"), and there the script raises
+ 23. KW, the encode's WELL dither draws, on the plan of a 10,000,000 x
+     100 file at --shards 0, primed, the debug seed (8,171 shards: 8,170
+     lanes of 1,216 reads after a 65,536-read warmup shard), in the
+     streams the encode gives it (ops/well_draws.stream_plan: the warmup
+     shard in lane-sized pieces): its (100, N) draws equal the host's
+     rt.well_draws7 on every shard (pipeline.host._shard_draws) and its
+     plain version's on the card; KW timed (median of 5) and its device
+     time (torch.profiler, the mean of 5 launches), also on the shards
+     uncut (the warmup shard one stream); the plain version timed once;
+     the pieces' jump-ahead timed on the host; its bound from its bytes
+     (the draws written, the states and offsets read) and the step's
+     integer operations
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns, one call each. Each kernel's bound
@@ -2565,6 +2577,105 @@ def tools_phase(np, data, dist, containers, distortion: float) -> None:
         shutil.rmtree(td, ignore_errors=True)
 
 
+# Phase 23's file: the benchmark cell's 10,000,000 reads of 100 columns
+WELL_READS, WELL_COLS = 10_000_000, 100
+# the WELL step's integer instructions (shifts and three-input logic
+# operations of csrc/well.cu's words32), for KW's bound
+WELL_STEP_OPS = 13
+
+
+def device_ms(torch, fn, key: str, runs: int = 5) -> float:
+    """The mean device time (ms) of the kernels named with `key` over
+    `runs` calls of fn, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if key in e.key]
+    total = sum((getattr(e, "device_time_total", None) or e.cuda_time_total)
+                for e in evs)
+    n = sum(e.count for e in evs)
+    return total / 1e3 / n if n else float("nan")
+
+
+def well_phase(torch, np, gpu) -> dict:
+    """Phase 23: KW against the host's rt.well_draws7 on every shard of the
+    10M x 100 plan and against its plain version on the card; its card
+    time, device time, bound and the plain version's time."""
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.ops import well_draws as wd
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline import encode as port
+    from qvz_tpu_torch.pipeline import host
+    from qvz_tpu_torch.roofline import ALU_LANES_PER_SM, bound
+
+    n, cols = WELL_READS, WELL_COLS
+    counts, states, _, prime_on = host.shard_plan(
+        n, cols, port.device_lane_count(n), True, WellState.debug())
+    require(prime_on, "phase 23's plan primes")
+    t = time.perf_counter()
+    s_states, s_lines = wd.stream_plan(states, counts, cols)
+    plan_ms = (time.perf_counter() - t) * 1e3
+    dev = torch.device("cuda")
+    words = torch.from_numpy(s_states.view(np.int32)).to(dev)
+    uncut = torch.from_numpy(states.view(np.int32)).to(dev)
+    out = {}
+    before = _build.LAUNCHES["well_draws"]
+
+    def kernel():
+        out["k"] = wd.draws_t(words, s_lines, cols)
+
+    def kernel_uncut():
+        out["u"] = wd.draws_t(uncut, counts, cols)
+
+    ms = statistics.median(event_ms(kernel, torch) for _ in range(6))
+    dev_ms = device_ms(torch, kernel, "well_draws_kernel")
+    uncut_ms = statistics.median(event_ms(kernel_uncut, torch)
+                                 for _ in range(3))
+    uncut_dev_ms = device_ms(torch, kernel_uncut, "well_draws_kernel", 2)
+    launches = _build.LAUNCHES["well_draws"] - before
+    got = out["k"]
+    require(torch.equal(got, out.pop("u")),
+            "[23] KW's draws from the cut streams equal those from the "
+            "shards uncut")
+    t = time.perf_counter()
+    want = host._shard_draws(states, counts, cols)
+    host_ms = (time.perf_counter() - t) * 1e3
+    got_h = got.cpu().numpy()
+    require(np.array_equal(got_h, want.T),
+            "[23] KW's draws equal rt.well_draws7 on every shard")
+    del want, got_h
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = wd.draws_t_reference(words, s_lines, cols)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(got, plain),
+            "[23] KW's draws equal its plain version's on the card")
+    del plain, got, out["k"]
+    n_words = int(sum(-(-int(x) * cols // 4) for x in s_lines))
+    nbytes = n * cols + s_states.nbytes + 8 * (len(s_lines) + 1)
+    bnd = bound(nbytes, WELL_STEP_OPS * n_words, gpu.per_s(ALU_LANES_PER_SM))
+    print(f"[23] KW, {len(counts)} shards ({len(s_lines)} streams, the "
+          f"warmup shard of {counts[0]} lines in pieces of {counts[1]}) x "
+          f"{cols} columns: equal to rt.well_draws7 on every shard and to "
+          f"its plain version; kernel {ms:.4f} ms (median of 6, CUDA "
+          f"events), device {dev_ms:.4f} ms (profiler, mean of 5); the "
+          f"shards uncut {uncut_ms:.4f} ms, device {uncut_dev_ms:.4f} ms; "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]}: {nbytes / 1e9:.4f} GB, "
+          f"{n_words} words x {WELL_STEP_OPS} ops); plain {plain_ms:.1f} "
+          f"ms (once); the host's _shard_draws {host_ms:.1f} ms; the "
+          f"pieces' plan on the host {plan_ms:.2f} ms; launches {launches}",
+          flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "uncut_ms": uncut_ms,
+            "uncut_device_ms": uncut_dev_ms, "plain_ms": plain_ms,
+            "host_ms": host_ms, "plan_ms": plan_ms, "bound": bnd,
+            "launches": launches}
+
+
 def sanitizer_phase() -> dict:
     """Phase 22 (see the module docstring): scripts/sanitize_torch.py
     --child none in a child interpreter, without the caching allocator as
@@ -2764,7 +2875,8 @@ def main() -> int:
               f"{json.dumps(phases)}", flush=True)
     launches = dict(_build.LAUNCHES)
     print(f"[5] kernel launches by the encodes: {launches}")
-    for name in ("hist", "quantize", "coder_triples", "coder_chain"):
+    for name in ("hist", "quantize", "coder_triples", "coder_chain",
+                 "well_draws"):
         require(launches.get(name, 0) >= 1, f"the encode launched {name}")
     # the encode's stats phase split as pipeline/encode.py runs it: K3
     # (CUDA events), then the counts' copy to the host (host clock)
@@ -2827,6 +2939,9 @@ def main() -> int:
     tools_phase(np, data, dist, containers, distortion[True])
     # -- 22. every kernel's code paths and the corrupt corpus ---------------
     sanitizer_phase()
+    # -- 23. KW on the 10M x 100 plan ----------------------------------------
+    well = well_phase(torch, np, gpu)
+    launches["well_draws"] += well["launches"]
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -2900,6 +3015,14 @@ def main() -> int:
          "bound_ms": dec["k5p"]["-c 3 prime=True"]["bound"][0],
          "bound_by": dec["k5p"]["-c 3 prime=True"]["bound"][1],
          "library_ms": None},
+        # KW replaces the host's fill of the draws (rt.well_draws7)
+        {"name": "well_draws", "route": "cuda",
+         "source": "qvz_tpu_torch/csrc/well.cu",
+         "replaces": "qvz_tpu_torch/pipeline/host.py:144",
+         "launches": launches["well_draws"], "max_abs_err": 0,
+         "ms": well["ms"], "device_ms": well["device_ms"],
+         "plain_ms": well["plain_ms"], "bound_ms": well["bound"][0],
+         "bound_by": well["bound"][1], "library_ms": None},
         *mb_kernels,
     ]
     for k in kernels:

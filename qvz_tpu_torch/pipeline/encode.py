@@ -2,8 +2,9 @@
 
 Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
 
-  h2d          the (N, cols) uint8 matrix and the dither draws to the
-               device, and its (cols, N) transpose there
+  h2d          the (N, cols) uint8 matrix to the device and its (cols, N)
+               transpose there; off the card also the host's dither draws
+               and their transpose
   cluster      k-means on the device (ops/kmeans.py, K4) for -c K > 1; the
                convergence loop on the host
   stats        conditional statistics on the device (ops/stats.py, K3);
@@ -11,7 +12,9 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
                statistics and the design
   design       codebook design on the host (C++ runtime, exact doubles),
                or the tables read from reuse_blocks
-  draws        WELL jump-ahead and dither draws on the host
+  draws        the WELL jump-ahead on the host and the dither draws: KW
+               (ops/well_draws.py) where every block is on a CUDA device,
+               else host threads
   quantize     K1 on the device (ops/quantize.py)
   device_code  K2s (the cluster-id segment's triples, -c K > 1), K2a and
                K2b on the device (ops/coder_device.py), the warmup shard
@@ -26,8 +29,11 @@ and, inside them (all but design_serial for QVZ2 only):
                  (``rt.Design.stats``), summed over the clusters; none
                  with reuse_blocks
   jump           the GF(2) jump-ahead of every shard's WELL start state,
-                 one thread (``shard_plan``); in draws
-  fill           the threaded dither draws (``_shard_draws``); in draws
+                 one thread (``shard_plan``), and for KW of the warmup
+                 shard's pieces (``well_draws.stream_plan``); in draws
+  fill           KW's launch on each block, its states' upload included,
+                 or off the card the threaded dither draws
+                 (``_shard_draws``); in draws
   warmup_prep    the warmup shard's quantize and primed bank on the host,
                  before any lane launches; in device_code
   warmup_wait    the wait for the warmup shard's coder thread after the
@@ -36,10 +42,12 @@ and, inside them (all but design_serial for QVZ2 only):
 
 Each phase is a ``utils.spans.span``: under a torch profiler also a range
 ``qvz.<phase>`` on the profiler's clock. ``EncodeStats.counters`` holds
-``h2d_bytes``, the bytes copied to the devices (the reads, the draws and
-the lane plan), and the design's ``lloyd_iters`` and
-``lloyd_discarded_iters``. Device phases end in a synchronise, so each
-time covers its device work.
+``h2d_bytes``, the bytes copied to the devices (the reads, KW's start
+states and line offsets or the host's draws, and the lane plan),
+``device_draws``, the draws KW made (N x cols, or 0 where the host filled
+them), and the design's ``lloyd_iters`` and
+``lloyd_discarded_iters``. Device phases, and ``fill``, end in a
+synchronise, so each time covers its device work.
 Every encode runs its device phases on blocks of reads
 (``parallel/sharded.py``): one block on `device`, or with a mesh one
 contiguous block a mesh entry, cut at shard boundaries, the k-means and
@@ -63,7 +71,7 @@ from qvz_tpu_torch.constants import MODE_RATIO
 from qvz_tpu_torch.device import resolve
 from qvz_tpu_torch.format import container_v2
 from qvz_tpu_torch.native import runtime as rt
-from qvz_tpu_torch.ops import coder_device, quantize
+from qvz_tpu_torch.ops import coder_device, quantize, well_draws
 from qvz_tpu_torch.ops.well import WellState
 from qvz_tpu_torch.parallel import sharded
 from qvz_tpu_torch.pipeline import host
@@ -172,18 +180,41 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
         return _output(compressed, payload_bytes, recon, dist_sum,
                        clusters, st, on_host)
 
+    # KW makes the draws where every block is on a card; otherwise the
+    # host fills them and they are copied, as for qvz_tpu
+    on_card = all(b.device.type == "cuda" for b in blocks)
     with span(ph, "draws"):
         with span(ph, "jump"):
             counts, states, offs, prime_on = shard_plan(
                 n, columns, shards, prime, well_state)
+            if on_card:
+                s_states, s_lines = well_draws.stream_plan(states, counts,
+                                                           columns)
+                s_offs = np.concatenate([[0], np.cumsum(s_lines)])
         with span(ph, "fill"):
-            draws = _shard_draws(states, counts, columns)
+            if on_card:
+                draws_t = []
+                for b in blocks:
+                    # the block's streams: blocks are cut at shard
+                    # boundaries
+                    t0, t1 = (int(t) for t in np.searchsorted(
+                        s_offs, [b.lo, b.hi]))
+                    draws_t.append(well_draws.draws_t(
+                        torch.from_numpy(s_states[t0:t1].view(np.int32))
+                        .to(b.device), s_lines[t0:t1], columns))
+                    # the states and the line offsets
+                    st.counters["h2d_bytes"] += 136 * (t1 - t0) + 8
+                sharded.synchronize_all(blocks)
+            else:
+                draws = _shard_draws(states, counts, columns)
+    st.counters["device_draws"] = n * columns if on_card else 0
 
-    with span(ph, "h2d"):
-        draws_t = [torch.from_numpy(draws[b.lo:b.hi]).to(b.device).t()
-                   .contiguous() for b in blocks]
-        sharded.synchronize_all(blocks)
-    st.counters["h2d_bytes"] += draws.nbytes
+    if not on_card:
+        with span(ph, "h2d"):
+            draws_t = [torch.from_numpy(draws[b.lo:b.hi]).to(b.device).t()
+                       .contiguous() for b in blocks]
+            sharded.synchronize_all(blocks)
+        st.counters["h2d_bytes"] += draws.nbytes
 
     with span(ph, "quantize"):
         quant = sharded.quantize_blocks(blocks, tables, draws_t)

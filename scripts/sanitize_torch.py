@@ -48,6 +48,9 @@ the CPU:
       ids), also against the host's rt.decode_cluster_prologue, through
       model 0's rescale in the rescale case, and on lanes it flags (banks
       whose model 0 total is not its counts' sum);
+  KW  well_draws_kernel: columns a multiple of 4 and not, 16-byte, 4-byte
+      and single-byte stores, a warmup shard in pieces, fewer streams a
+      block at 1,000 columns;
   the microbenchmark's issue (addxor, cmpsel), mix (3-D and 2-D) and
   selmix (sel, sel_b4, sweeponly);
   the encode and decode on the card at -c 1 primed and -c 3 unprimed,
@@ -86,10 +89,10 @@ from qvz_tpu_torch.format import container_v2  # noqa: E402
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 # the mangled names of the kernels in qvz_tpu_torch/csrc/
 KERNEL_REGEX = (r"(quantize|triples|chain|segment|hist|kmeans|decode_lanes|"
-                r"text_rows|cluster_prologue)_kernel|qvz_mb_")
+                r"text_rows|cluster_prologue|well_draws)_kernel|qvz_mb_")
 KERNELS = ("quantize", "coder_triples", "coder_chain", "coder_segment",
-           "hist", "kmeans", "decoder", "cluster_prologue", "issue", "mix",
-           "selmix")
+           "hist", "kmeans", "decoder", "cluster_prologue", "well_draws",
+           "issue", "mix", "selmix")
 # the workload's shape: lanes of 125 lines keep the plain K2 and K5 short
 N, COLS, SHARDS = 4001, 20, 32
 CORPUS_SHAPE = (20_000, 50)
@@ -509,6 +512,33 @@ def _kmeans(torch, dev, paths: list) -> None:
                      f"{shape['grid']} blocks")
 
 
+def _well(torch, dev, paths: list) -> None:
+    """KW on primed and unprimed plans: 100 columns (kQuad, 16-byte stores
+    where the lane offsets allow), 37 and 3 (4-byte and single-byte
+    stores, ragged lanes) and 1,000 (fewer streams a block)."""
+    from qvz_tpu_torch.ops import well_draws as wd
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline import host
+
+    warmup = host.PRIME_WARMUP_LINES
+    host.PRIME_WARMUP_LINES = 512
+    try:
+        for n, cols, shards, prime in ((2051, 100, 16, True),
+                                       (3001, 37, 8, True),
+                                       (999, 3, 7, False),
+                                       (700, 1000, 6, False)):
+            counts, states, _, _ = host.shard_plan(n, cols, shards, prime,
+                                                   WellState.debug())
+            s_states, s_lines = wd.stream_plan(states, counts, cols)
+            words = torch.from_numpy(s_states.view(np.int32))
+            _equal(f"KW {n} x {cols}",
+                   wd.draws_t(words.to(dev), s_lines, cols),
+                   wd.draws_t_reference(words, s_lines, cols))
+            paths.append(f"KW {n} x {cols} {len(s_lines)} streams")
+    finally:
+        host.PRIME_WARMUP_LINES = warmup
+
+
 def _microbench(torch, dev, paths: list) -> None:
     from qvz_tpu_torch import microbench as mb
 
@@ -543,6 +573,7 @@ def child(tool: str) -> int:
     _stats_quantize_code(torch, dev, paths)
     _rescale(torch, dev, paths)
     _kmeans(torch, dev, paths)
+    _well(torch, dev, paths)
     _microbench(torch, dev, paths)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)

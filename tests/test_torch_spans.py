@@ -119,9 +119,11 @@ def test_device_encode_phases_and_counters(small_warmup, n_clusters):
     assert ph["warmup_prep"] + ph["warmup_wait"] <= ph["device_code"]
     assert set(dv) == {"h2d", "stats", "quantize", "device_code", "d2h"} \
         | ({"cluster"} if n_clusters > 1 else set())
-    assert set(ct) == {"h2d_bytes", "lloyd_iters", "lloyd_discarded_iters"}
-    # the reads and the draws, then the lane plan
+    assert set(ct) == {"h2d_bytes", "device_draws", "lloyd_iters",
+                       "lloyd_discarded_iters"}
+    # the reads and the host's draws (on the CPU), then the lane plan
     assert ct["h2d_bytes"] > 2 * n * cols
+    assert ct["device_draws"] == 0
     assert 0 <= ct["lloyd_discarded_iters"] <= ct["lloyd_iters"]
     assert ct["lloyd_iters"] > 0
 
