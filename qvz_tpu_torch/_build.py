@@ -164,7 +164,7 @@ def load(lineinfo: bool = False) -> ctypes.CDLL:
     lib.qvz_cluster_prologue.restype = ctypes.c_int
     lib.qvz_decoder_smem_limit.argtypes = []
     lib.qvz_decoder_smem_limit.restype = ctypes.c_int
-    lib.qvz_well_draws.argtypes = [p, p, i32, i32, i64, i32, p, p]
+    lib.qvz_well_draws.argtypes = [p, p, i32, i32, i64, p, p]
     lib.qvz_well_draws.restype = ctypes.c_int
     lib.qvz_microbench_issue.argtypes = [p, i32, i32, i32, p, p]
     lib.qvz_microbench_issue.restype = ctypes.c_int

@@ -24,11 +24,6 @@ import torch
 from qvz_tpu_torch import _build
 from qvz_tpu_torch.native import runtime as rt
 
-# KW's most streams a block: one warp (csrc/well.cu kMaxStreams)
-STREAMS_PER_BLOCK = 32
-# the block's static shared memory: each stream's offset and lines
-_STATIC_SMEM = 12 * STREAMS_PER_BLOCK
-
 _M32 = 0xFFFFFFFF
 # the bit offsets of a pool word's four draws
 _SHIFTS = (0, 7, 14, 21)
@@ -62,20 +57,6 @@ def stream_plan(states: np.ndarray, counts, columns: int):
         out_lines += [piece] * (k - 1) + [count - piece * (k - 1)]
     return (np.concatenate(out_states).astype(np.uint32),
             np.asarray(out_lines, dtype=np.int64))
-
-
-def streams_per_block(columns: int, smem_block: int) -> int:
-    """KW's streams a block: up to STREAMS_PER_BLOCK, as many as leave
-    each its staged words (4 x columns + 33 u32) in the `smem_block`
-    bytes of shared memory a block may ask for; raises where not one
-    fits."""
-    spb = min(STREAMS_PER_BLOCK,
-              (smem_block - _STATIC_SMEM) // (4 * (4 * columns + 33)))
-    if spb < 1:
-        raise ValueError(f"{columns} columns: one stream's staged draws "
-                         f"pass the {smem_block} B of shared memory a "
-                         "block may ask for")
-    return spb
 
 
 def _offsets(lines, device) -> torch.Tensor:
@@ -167,9 +148,7 @@ def draws_t(states: torch.Tensor, lines, columns: int) -> torch.Tensor:
         return out
     states = states.contiguous()
     offs = _offsets(lines, dev)
-    with torch.cuda.device(dev):
-        spb = streams_per_block(columns, _build.smem_limits()[0])
     _build.launch("well_draws", "WELL draw kernel", dev, lib.qvz_well_draws,
                   states.data_ptr(), offs.data_ptr(), len(lines), columns, n,
-                  spb, out.data_ptr())
+                  out.data_ptr())
     return out

@@ -3,8 +3,8 @@
 Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
 
   h2d          the (N, cols) uint8 matrix to the device and its (cols, N)
-               transpose there; off the card also the host's dither draws
-               and their transpose
+               transpose there; for blocks off the card also the host's
+               dither draws and their transpose
   cluster      k-means on the device (ops/kmeans.py, K4) for -c K > 1; the
                convergence loop on the host
   stats        conditional statistics on the device (ops/stats.py, K3);
@@ -13,8 +13,8 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
   design       codebook design on the host (C++ runtime, exact doubles),
                or the tables read from reuse_blocks
   draws        the WELL jump-ahead on the host and the dither draws: KW
-               (ops/well_draws.py) where every block is on a CUDA device,
-               else host threads
+               (ops/well_draws.py) for the blocks on a CUDA device, host
+               threads for the others
   quantize     K1 on the device (ops/quantize.py)
   device_code  K2s (the cluster-id segment's triples, -c K > 1), K2a and
                K2b on the device (ops/coder_device.py), the warmup shard
@@ -31,9 +31,9 @@ and, inside them (all but design_serial for QVZ2 only):
   jump           the GF(2) jump-ahead of every shard's WELL start state,
                  one thread (``shard_plan``), and for KW of the warmup
                  shard's pieces (``well_draws.stream_plan``); in draws
-  fill           KW's launch on each block, its states' upload included,
-                 or off the card the threaded dither draws
-                 (``_shard_draws``); in draws
+  fill           KW's launch on each block on a card, its states' upload
+                 included, and for the others the threaded dither draws
+                 of the block's shards (``_shard_draws``); in draws
   warmup_prep    the warmup shard's quantize and primed bank on the host,
                  before any lane launches; in device_code
   warmup_wait    the wait for the warmup shard's coder thread after the
@@ -44,10 +44,10 @@ Each phase is a ``utils.spans.span``: under a torch profiler also a range
 ``qvz.<phase>`` on the profiler's clock. ``EncodeStats.counters`` holds
 ``h2d_bytes``, the bytes copied to the devices (the reads, KW's start
 states and line offsets or the host's draws, and the lane plan),
-``device_draws``, the draws KW made (N x cols, or 0 where the host filled
-them), and the design's ``lloyd_iters`` and
-``lloyd_discarded_iters``. Device phases, and ``fill``, end in a
-synchronise, so each time covers its device work.
+``device_draws``, the draws KW made (the lines of the blocks on a card
+x cols; 0 where the host filled every block's), and the design's
+``lloyd_iters`` and ``lloyd_discarded_iters``. Device phases, and
+``fill``, end in a synchronise, so each time covers its device work.
 Every encode runs its device phases on blocks of reads
 (``parallel/sharded.py``): one block on `device`, or with a mesh one
 contiguous block a mesh entry, cut at shard boundaries, the k-means and
@@ -180,23 +180,24 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
         return _output(compressed, payload_bytes, recon, dist_sum,
                        clusters, st, on_host)
 
-    # KW makes the draws where every block is on a card; otherwise the
-    # host fills them and they are copied, as for qvz_tpu
-    on_card = all(b.device.type == "cuda" for b in blocks)
+    # each block's draws: KW's on a card; off the card the host fills the
+    # block's shards and they are copied, as for qvz_tpu
+    on_card = [b.device.type == "cuda" for b in blocks]
+    st.counters["device_draws"] = 0
     with span(ph, "draws"):
         with span(ph, "jump"):
             counts, states, offs, prime_on = shard_plan(
                 n, columns, shards, prime, well_state)
-            if on_card:
+            if any(on_card):
                 s_states, s_lines = well_draws.stream_plan(states, counts,
                                                            columns)
                 s_offs = np.concatenate([[0], np.cumsum(s_lines)])
         with span(ph, "fill"):
-            if on_card:
-                draws_t = []
-                for b in blocks:
-                    # the block's streams: blocks are cut at shard
-                    # boundaries
+            draws_t = []
+            for b, card in zip(blocks, on_card):
+                # the block's streams, or shards: blocks are cut at shard
+                # boundaries
+                if card:
                     t0, t1 = (int(t) for t in np.searchsorted(
                         s_offs, [b.lo, b.hi]))
                     draws_t.append(well_draws.draws_t(
@@ -204,17 +205,22 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
                         .to(b.device), s_lines[t0:t1], columns))
                     # the states and the line offsets
                     st.counters["h2d_bytes"] += 136 * (t1 - t0) + 8
-                sharded.synchronize_all(blocks)
-            else:
-                draws = _shard_draws(states, counts, columns)
-    st.counters["device_draws"] = n * columns if on_card else 0
-
-    if not on_card:
-        with span(ph, "h2d"):
-            draws_t = [torch.from_numpy(draws[b.lo:b.hi]).to(b.device).t()
-                       .contiguous() for b in blocks]
+                    st.counters["device_draws"] += int(b.hi - b.lo) * columns
+                else:
+                    s0, s1 = (int(s) for s in np.searchsorted(
+                        offs, [b.lo, b.hi]))
+                    draws_t.append(_shard_draws(states[s0:s1],
+                                                counts[s0:s1], columns))
             sharded.synchronize_all(blocks)
-        st.counters["h2d_bytes"] += draws.nbytes
+
+    if not all(on_card):
+        with span(ph, "h2d"):
+            for i, b in enumerate(blocks):
+                if not on_card[i]:
+                    st.counters["h2d_bytes"] += draws_t[i].nbytes
+                    draws_t[i] = torch.from_numpy(draws_t[i]).to(b.device) \
+                        .t().contiguous()
+            sharded.synchronize_all(blocks)
 
     with span(ph, "quantize"):
         quant = sharded.quantize_blocks(blocks, tables, draws_t)

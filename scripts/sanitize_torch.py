@@ -50,7 +50,8 @@ the CPU:
       whose model 0 total is not its counts' sum);
   KW  well_draws_kernel: columns a multiple of 4 and not, 16-byte, 4-byte
       and single-byte stores, a warmup shard in pieces, fewer streams a
-      block at 1,000 columns;
+      block at 1,000 columns, 4-line tiles at 14,600 columns and one-line
+      tiles in chunks of columns at 60,000 and 60,001;
   the microbenchmark's issue (addxor, cmpsel), mix (3-D and 2-D) and
   selmix (sel, sel_b4, sweeponly);
   the encode and decode on the card at -c 1 primed and -c 3 unprimed,
@@ -515,7 +516,8 @@ def _kmeans(torch, dev, paths: list) -> None:
 def _well(torch, dev, paths: list) -> None:
     """KW on primed and unprimed plans: 100 columns (kQuad, 16-byte stores
     where the lane offsets allow), 37 and 3 (4-byte and single-byte
-    stores, ragged lanes) and 1,000 (fewer streams a block)."""
+    stores, ragged lanes) and 1,000 (fewer streams a block); and at 14,600,
+    60,000 and 60,001 columns (4-line and one-line tiles)."""
     from qvz_tpu_torch.ops import well_draws as wd
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import host
@@ -537,6 +539,19 @@ def _well(torch, dev, paths: list) -> None:
             paths.append(f"KW {n} x {cols} {len(s_lines)} streams")
     finally:
         host.PRIME_WARMUP_LINES = warmup
+    # past 16 lines' shared memory: 4-line tiles, and one-line tiles in
+    # chunks of columns (a multiple of 4 and not), against the host's draws
+    for cols, lines in ((14600, [5, 9, 0, 13, 4, 7, 6]),
+                        (60000, [2, 0, 3, 1] * 5), (60001, [2, 0, 3, 1] * 5)):
+        states = np.random.default_rng(cols).integers(
+            0, 2**32, size=(len(lines), 32), dtype=np.uint64) \
+            .astype(np.uint32)
+        _equal(f"KW {sum(lines)} x {cols}",
+               wd.draws_t(torch.from_numpy(states.view(np.int32)).to(dev),
+                          lines, cols),
+               torch.from_numpy(np.ascontiguousarray(
+                   host._shard_draws(states, lines, cols).T)))
+        paths.append(f"KW {sum(lines)} x {cols} {len(lines)} streams")
 
 
 def _microbench(torch, dev, paths: list) -> None:

@@ -2,8 +2,14 @@
 encode's dither draws (``qvz_tpu_torch.ops.well_draws``) against the host
 runtime's ``rt.well_draws7`` shard by shard and against ``qvz_tpu``'s
 lockstep streams (``well_words_vectorized``, ``draws_from_words``); the
-wrapper's checks; a CPU device encode keeps the host's draws.
-KW itself runs in ``tests/test_torch_well_draws_card.py``."""
+wrapper's checks; a CPU device encode keeps the host's draws, on one
+device and on each block of a mesh; the SHA-256 of ``qvz_tpu``'s
+containers that the card's encodes compare with. KW itself runs in
+``tests/test_torch_well_draws_card.py``."""
+
+import hashlib
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -12,10 +18,12 @@ import torch
 from qvz_tpu.constants import DISTORTION_MSE
 from qvz_tpu.ops import well as jx_well
 from qvz_tpu.ops.distortion import make_matrix
+from qvz_tpu.pipeline import encode as jx_encode
 from qvz_tpu_torch.native import runtime as rt
 from qvz_tpu_torch.ops import coder_device
 from qvz_tpu_torch.ops import well_draws as wd
 from qvz_tpu_torch.ops.well import WellState
+from qvz_tpu_torch.parallel.mesh import make_mesh
 from qvz_tpu_torch.pipeline import encode as port
 from qvz_tpu_torch.pipeline import host
 
@@ -146,18 +154,33 @@ def test_wrapper_rejects(case):
         wd.draws_t(*make(s))
 
 
-@pytest.mark.parametrize("columns,smem,want", [
-    (100, 232448, 32), (443, 232448, 32), (1000, 232448, 14),
-    (14400, 232448, 1), (100, 49152, 28)])
-def test_streams_per_block_fit_shared_memory(columns, smem, want):
-    spb = wd.streams_per_block(columns, smem)
-    assert spb == want
-    assert spb * 4 * (4 * columns + 33) + 12 * 32 <= smem
+def _card_data(n, cols, seed):
+    """The reads of tests/test_torch_well_draws_card.py's encodes."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(20, 45, size=(n, 1))
+    steps = rng.integers(-3, 4, size=(n, cols - 1))
+    return np.clip(np.concatenate([start, steps], 1).cumsum(1), 0,
+                   71).astype(np.uint8)
 
 
-def test_streams_per_block_raise_past_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        wd.streams_per_block(14600, 232448)
+@pytest.mark.parametrize("n_clusters", [1, 3])
+@pytest.mark.parametrize("prime", [True, False], ids=["prime", "noprime"])
+def test_card_encode_golden_is_qvz_tpus_container(monkeypatch, n_clusters,
+                                                  prime):
+    """The SHA-256 that the card's KW encodes compare their containers
+    with (golden/kw_encode_sha256.json) is that of qvz_tpu's container."""
+    monkeypatch.setattr(jx_encode, "PRIME_WARMUP_LINES", 512)
+    golden = json.loads((pathlib.Path(__file__).parent / "golden"
+                         / "kw_encode_sha256.json").read_text())
+    n, cols = golden["lines"], golden["columns"]
+    out = jx_encode.encode(_card_data(n, cols, n_clusters), DIST,
+                           well_state=jx_well.WellState.debug(),
+                           use_jax=False, n_clusters=n_clusters,
+                           shards=golden["shards"], prime=prime,
+                           want_recon=False)
+    key = f"{n_clusters}-{'prime' if prime else 'noprime'}"
+    assert hashlib.sha256(out.compressed).hexdigest() == \
+        golden["sha256"][key]
 
 
 def test_cuda_without_a_card_raises():
@@ -199,3 +222,19 @@ def test_cpu_encode_keeps_the_host_draws(monkeypatch, n_clusters):
     want = host.encode(data, DIST, n_clusters=n_clusters, shards=8,
                        want_recon=False)
     assert out.compressed == want.compressed
+
+
+@pytest.mark.parametrize("prime", [True, False], ids=["prime", "noprime"])
+def test_cpu_mesh_fills_each_blocks_draws_on_the_host(monkeypatch, prime):
+    """On a mesh of CPU blocks each block's shards get the host's draws:
+    device_draws 0, h2d_bytes as on one CPU device, and the container
+    the host engine's."""
+    monkeypatch.setattr(host, "PRIME_WARMUP_LINES", 512)
+    data = _card_data(1500, 6, 2)
+    kw = dict(shards=8, prime=prime, want_recon=False)
+    one = port.encode(data, DIST, device="cpu", **kw)
+    got = port.encode(data, DIST, mesh=make_mesh(devices=["cpu"] * 3), **kw)
+    assert got.stats.counters["device_draws"] == 0
+    assert got.stats.counters["h2d_bytes"] == one.stats.counters["h2d_bytes"]
+    assert got.compressed == one.compressed
+    assert got.compressed == host.encode(data, DIST, **kw).compressed
