@@ -857,17 +857,16 @@ def payloads_from_raw(words_h, n_words_h, carry_h):
     return payloads, flags
 
 
-def finish_lanes(raw):
+def wait_and_fetch(raw):
     """The host's end of ``code_lanes``: wait for the lanes of the raw
-    output `raw`, copy them to the host and assemble their payloads.
-    Returns (payloads, flags) as ``payloads_from_raw`` and the seconds of
-    the device-to-host copy (fenced)."""
+    output `raw` and copy them to the host. Returns ``fetch_lanes``'s
+    arrays, which ``payloads_from_raw`` assembles, and the seconds of the
+    device-to-host copy (fenced)."""
     if raw[0].device.type == "cuda":
         torch.cuda.synchronize(raw[0].device)
     t0 = time.perf_counter()
     fetched = fetch_lanes(*raw)
-    d2h = time.perf_counter() - t0
-    return (*payloads_from_raw(*fetched), d2h)
+    return fetched, time.perf_counter() - t0
 
 
 def encode_lanes_raw(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
@@ -879,7 +878,8 @@ def encode_lanes_raw(plan_t: dict, mid: torch.Tensor, qs: torch.Tensor,
     qvz_tpu takes the host's cluster-id triples. Lane w covers lines base
     + sum(lane_counts[:w]) onwards. Every lane is coded, so no flag is
     set (``qvz_tpu`` flags a lane whose model would rescale and leaves it
-    to the host). ``code_lanes`` then ``finish_lanes``."""
-    payloads, flags, _ = finish_lanes(
+    to the host). ``code_lanes``, ``wait_and_fetch``, then
+    ``payloads_from_raw``."""
+    fetched, _ = wait_and_fetch(
         code_lanes(plan_t, mid, qs, lane_counts, base, clusters))
-    return payloads, flags
+    return payloads_from_raw(*fetched)

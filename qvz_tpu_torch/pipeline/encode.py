@@ -36,6 +36,14 @@ and, inside them (all but design_serial for QVZ2 only):
                  of the block's shards (``_shard_draws``); in draws
   warmup_prep    the warmup shard's quantize and primed bank on the host,
                  before any lane launches; in device_code
+  coder_plan     the lane coder's plan on the host (``LanePlan``: the
+                 columns' model tables), its upload to each device and
+                 its models at risk (``risk_tables``); in device_code
+  lanes          from the first K2 launch (K2s, K2a, K2b) to the last
+                 lane's raw output on the host, its copy (d2h) included;
+                 in device_code
+  payload_finish the lanes' payloads assembled from their raw output on
+                 the host (``payloads_from_raw``); in device_code
   warmup_wait    the wait for the warmup shard's coder thread after the
                  last lane is fetched; in device_code
   container      the shard states and the container's assembly; in code
@@ -45,8 +53,10 @@ Each phase is a ``utils.spans.span``: under a torch profiler also a range
 ``h2d_bytes``, the bytes copied to the devices (the reads, KW's start
 states and line offsets or the host's draws, and the lane plan),
 ``device_draws``, the draws KW made (the lines of the blocks on a card
-x cols; 0 where the host filled every block's), and the design's
-``lloyd_iters`` and ``lloyd_discarded_iters``. Device phases, and
+x cols; 0 where the host filled every block's), the design's
+``lloyd_iters`` and ``lloyd_discarded_iters``, and the lane plan's
+``coder_models`` (the models of its columns) and ``coder_models_at_risk``
+(``risk_tables``' count at the file's longest lane). Device phases, and
 ``fill``, end in a synchronise, so each time covers its device work.
 Every encode runs its device phases on blocks of reads
 (``parallel/sharded.py``): one block on `device`, or with a mesh one
@@ -310,8 +320,6 @@ def _code_lanes(tables, data, blocks, quant, clusters, states, counts, offs,
 
         warmup_thread = threading.Thread(target=_code_warmup)
         warmup_thread.start()
-    plan = coder_device.LanePlan(tables, bank)
-
     lane_counts = counts[first:]
     # each block's lanes w0 .. w1 - 1, from its local line base
     lanes = []
@@ -320,15 +328,10 @@ def _code_lanes(tables, data, blocks, quant, clusters, states, counts, offs,
         w1 = int(np.searchsorted(offs, b.hi)) - first
         lanes.append((w0, w1, int(offs[first + w0]) - b.lo))
     plans: dict = {}
-    lane_pays: list = [None] * len(lane_counts)
-    flags = np.zeros(len(lane_counts), dtype=bool)
-    ph["d2h"] = 0.0
-    try:
-        # every block's lanes launched before the first is fetched
-        raws = []
-        for b, (mid, qs, _), (w0, w1, base) in zip(blocks, quant, lanes):
+    with span(ph, "coder_plan"):
+        plan = coder_device.LanePlan(tables, bank)
+        for b, (w0, w1, _) in zip(blocks, lanes):
             if w1 <= w0:
-                raws.append(None)
                 continue
             if b.device not in plans:
                 plans[b.device] = coder_device.plan_to_torch(plan, b.device)
@@ -336,19 +339,38 @@ def _code_lanes(tables, data, blocks, quant, clusters, states, counts, offs,
                     v.numel() * v.element_size()
                     for v in plans[b.device].values()
                     if isinstance(v, torch.Tensor))
-            raws.append(coder_device.code_lanes(
-                plans[b.device], mid, qs, lane_counts[w0:w1], base,
-                b.clusters))
-        for raw, (w0, w1, _) in zip(raws, lanes):
-            if raw is not None:
-                lane_pays[w0:w1], flags[w0:w1], secs = \
-                    coder_device.finish_lanes(raw)
-                ph["d2h"] += secs
+            # the models at risk for the block's longest lane, and their
+            # tables on the device, cached in the plan for its launches
+            coder_device.risk_tables(plans[b.device],
+                                     int(max(lane_counts[w0:w1])))
+        st.counters["coder_models"] = len(plan.mtab)
+        st.counters["coder_models_at_risk"] = coder_device.risk_tables(
+            next(iter(plans.values())), int(max(lane_counts)))["models"]
+    lane_pays: list = [None] * len(lane_counts)
+    flags = np.zeros(len(lane_counts), dtype=bool)
+    try:
+        with span(ph, "lanes"):
+            # every block's lanes launched before the first is fetched
+            raws = [coder_device.code_lanes(
+                        plans[b.device], mid, qs, lane_counts[w0:w1], base,
+                        b.clusters) if w1 > w0 else None
+                    for b, (mid, qs, _), (w0, w1, base)
+                    in zip(blocks, quant, lanes)]
+            fetched = [None if raw is None
+                       else coder_device.wait_and_fetch(raw)
+                       for raw in raws]
+            del raws
+            ph["d2h"] = sum(f[1] for f in fetched if f is not None)
+        with span(ph, "payload_finish"):
+            for f, (w0, w1, _) in zip(fetched, lanes):
+                if f is not None:
+                    lane_pays[w0:w1], flags[w0:w1] = \
+                        coder_device.payloads_from_raw(*f[0])
     finally:
         if warmup_thread is not None:
             with span(ph, "warmup_wait"):
                 warmup_thread.join()
     # qvz_tpu's field: K2 codes every lane, so none goes to the host
-    # (finish_lanes raises where one could not be coded)
+    # (payloads_from_raw raises where one could not be coded)
     st.coder_fallback_lanes = int(flags.sum())
     return ([warmup_out[0]] if prime_on else []) + lane_pays

@@ -25,7 +25,12 @@ DIST = make_matrix(DISTORTION_MSE)
 # each new phase and the phase it lies in
 INSIDE = {"jump": "draws", "fill": "draws", "design_serial": "design",
           "warmup_prep": "device_code", "warmup_wait": "device_code",
-          "device_code": "code", "container": "code"}
+          "coder_plan": "device_code", "lanes": "device_code",
+          "payload_finish": "device_code", "device_code": "code",
+          "container": "code"}
+# the phases that divide device_code among them
+IN_DEVICE_CODE = ("warmup_prep", "coder_plan", "lanes", "payload_finish",
+                  "warmup_wait")
 
 
 def _data(n, cols, seed):
@@ -116,11 +121,14 @@ def test_device_encode_phases_and_counters(small_warmup, n_clusters):
     for phase, outer in INSIDE.items():
         assert 0.0 <= ph[phase] <= ph[outer], phase
     assert ph["jump"] + ph["fill"] <= ph["draws"]
-    assert ph["warmup_prep"] + ph["warmup_wait"] <= ph["device_code"]
+    assert sum(ph[p] for p in IN_DEVICE_CODE) <= ph["device_code"]
+    # the lanes' copy to the host (no recon is asked for)
+    assert ph["d2h"] <= ph["lanes"]
     assert set(dv) == {"h2d", "stats", "quantize", "device_code", "d2h"} \
         | ({"cluster"} if n_clusters > 1 else set())
     assert set(ct) == {"h2d_bytes", "device_draws", "lloyd_iters",
-                       "lloyd_discarded_iters"}
+                       "lloyd_discarded_iters", "coder_models",
+                       "coder_models_at_risk"}
     # the reads and the host's draws (on the CPU), then the lane plan
     assert ct["h2d_bytes"] > 2 * n * cols
     assert ct["device_draws"] == 0
@@ -140,6 +148,52 @@ def test_device_encode_phases_and_counters(small_warmup, n_clusters):
         if phase in timed:
             (a, b), (c, d) = where["qvz." + phase], where["qvz." + outer]
             assert c <= a <= b <= d, phase
+    # device_code's phases follow one another, none inside another
+    inner = sorted(where["qvz." + p] for p in IN_DEVICE_CODE)
+    assert all(b <= c for (_, b), (c, _) in zip(inner, inner[1:]))
+
+
+def _rescale_input():
+    """test_torch_encode's input whose primed warmup shard leaves a model
+    within a lane's updates of 2^19: 12 x 65,520 reads of 30 or 31."""
+    rng = np.random.default_rng(7)
+    return (30 + rng.integers(0, 2, (12 * 65_520, 1))).astype(np.uint8)
+
+
+@pytest.mark.parametrize("case", ["small", "rescale"])
+def test_coder_counters_are_risk_tables_counts(small_warmup, monkeypatch,
+                                               case):
+    """coder_models counts the lane plan's models (every model but the
+    cluster-id model) and coder_models_at_risk ``risk_tables``' models at
+    the file's longest lane, for a plan rebuilt here from the container:
+    its codebooks and the bank of its warmup shard."""
+    from qvz_tpu_torch.format import container_v2 as cv
+    from qvz_tpu_torch.ops import coder_device as cd
+    if case == "small":
+        data, kw = _data(1100, 4, seed=7), dict(shards=64, ratio=0.5)
+    else:
+        monkeypatch.setattr(port_host, "PRIME_WARMUP_LINES", 65536)
+        data, kw = _rescale_input(), dict(shards=1801, ratio=1.0)
+    got = port.encode(data, DIST, well_state=WellState.debug(),
+                      device="cpu", want_recon=False, **kw)
+    blob = got.compressed
+    tables = rt.tables_from_blocks(blob[cv.header_size():], 1,
+                                   data.shape[1])
+    head = cv.parse(blob, tables.consumed)
+    assert head.priming == 1
+    w_n = head.shards[0].lines
+    md0, qs0, _, _ = rt.quantize_colmajor(
+        tables, np.ascontiguousarray(data[:w_n].T), None,
+        np.frombuffer(head.shards[0].well_state, dtype="<u4"))
+    bank = rt.bank_from_stream(tables, md0, qs0, None, w_n)
+    plan_t = cd.plan_to_torch(cd.LanePlan(tables, bank), "cpu")
+    lmax = max(s.lines for s in head.shards[1:])
+    at_risk = cd.risk_tables(plan_t, lmax)["models"]
+    ct = got.stats.counters
+    assert ct["coder_models"] == len(plan_t["mtab_h"]) \
+        == int(tables.n_models) - 1
+    assert ct["coder_models_at_risk"] == at_risk
+    assert (at_risk > 0) == (case == "rescale")
 
 
 def test_compress_bytes_times_the_parse(small_warmup):
