@@ -211,7 +211,16 @@ Phases:
      uncut (the warmup shard one stream); the plain version timed once;
      the pieces' jump-ahead timed on the host; its bound from its bytes
      (the draws written, the states and offsets read) and the step's
-     integer operations
+     integer operations. Then KJ, the streams' start states on the card
+     from their word offsets (ops/well_jump.states_t): equal to the host
+     chain's (rt.well_jump, as stream_plan gives them) on every stream and
+     to its plain version's on the card; timed (median of 6, the
+     offsets' upload included), its device time (profiler, mean of 5),
+     the plain version once and the host chain (shard_plan and
+     stream_plan) once; its bound from its operations (a three-input
+     AND-XOR a word of each row and a parity a row, for every set bit of
+     every offset) and its bytes (the table's matrices it reads, the
+     offsets and the states)
 
 Times are CUDA-event times after a warm-up, kernel and plain version
 measured in turns, one call each. Each kernel's bound
@@ -2298,12 +2307,12 @@ def mesh_phase(torch, np, data, dist, containers, e2e, k4_iters) -> dict:
     the one card. -c 3 -T 4 primed at phase 10's shard count over 4
     blocks, byte-equal to phase 10's primed container; -c 1 primed at
     --shards 0 over 2 blocks, byte-equal to phase 5's. Every block's K4
-    steps, K3, K1, K2a, K2b and (-c 3) K2s launches are counted call by
-    call; the -c 3 container decodes on the card (K5p, K5) to the host
+    steps, K3, KJ, K1, K2a, K2b and (-c 3) K2s launches are counted call
+    by call; the -c 3 container decodes on the card (K5p, K5) to the host
     decoder's bytes.
     Returns the launches, the kernels' under their _build names."""
     from qvz_tpu_torch import _build
-    from qvz_tpu_torch.ops import coder_device, kmeans, quantize
+    from qvz_tpu_torch.ops import coder_device, kmeans, quantize, well_jump
     from qvz_tpu_torch.ops import stats as ts
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.parallel.mesh import make_mesh
@@ -2324,6 +2333,7 @@ def mesh_phase(torch, np, data, dist, containers, e2e, k4_iters) -> dict:
         with CallLaunches([(kmeans, "_step_packed"),
                            (ts, "conditional_counts_t"),
                            (quantize, "quantize_t_device"),
+                           (well_jump, "states_t"),
                            (coder_device, "code_lanes")]) as rec:
             t = time.perf_counter()
             out = port.encode(data, dist, well_state=WellState.debug(),
@@ -2338,6 +2348,7 @@ def mesh_phase(torch, np, data, dist, containers, e2e, k4_iters) -> dict:
         per = {"kmeans": ("_step_packed", blocks * steps),
                "hist": ("conditional_counts_t", blocks),
                "quantize": ("quantize_t_device", blocks),
+               "well_jump": ("states_t", blocks),
                "coder_triples": ("code_lanes", blocks),
                "coder_chain": ("code_lanes", blocks)}
         if steps:
@@ -2604,21 +2615,28 @@ def device_ms(torch, fn, key: str, runs: int = 5) -> float:
 def well_phase(torch, np, gpu) -> dict:
     """Phase 23: KW against the host's rt.well_draws7 on every shard of the
     10M x 100 plan and against its plain version on the card; its card
-    time, device time, bound and the plain version's time."""
+    time, device time, bound and the plain version's time; then KJ on the
+    plan's streams against the host's chained jump and its plain
+    version, the same figures."""
     from qvz_tpu_torch import _build
     from qvz_tpu_torch.ops import well_draws as wd
+    from qvz_tpu_torch.ops import well_jump as wj
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import encode as port
     from qvz_tpu_torch.pipeline import host
     from qvz_tpu_torch.roofline import ALU_LANES_PER_SM, bound
 
     n, cols = WELL_READS, WELL_COLS
+    t = time.perf_counter()
     counts, states, _, prime_on = host.shard_plan(
         n, cols, port.device_lane_count(n), True, WellState.debug())
+    chain_ms = (time.perf_counter() - t) * 1e3
     require(prime_on, "phase 23's plan primes")
     t = time.perf_counter()
     s_states, s_lines = wd.stream_plan(states, counts, cols)
     plan_ms = (time.perf_counter() - t) * 1e3
+    jump = jump_check(torch, np, gpu, s_states, counts, cols,
+                      chain_ms + plan_ms)
     dev = torch.device("cuda")
     words = torch.from_numpy(s_states.view(np.int32)).to(dev)
     uncut = torch.from_numpy(states.view(np.int32)).to(dev)
@@ -2673,7 +2691,64 @@ def well_phase(torch, np, gpu) -> dict:
     return {"ms": ms, "device_ms": dev_ms, "uncut_ms": uncut_ms,
             "uncut_device_ms": uncut_dev_ms, "plain_ms": plain_ms,
             "host_ms": host_ms, "plan_ms": plan_ms, "bound": bnd,
-            "launches": launches}
+            "launches": launches, "jump": jump}
+
+
+def jump_check(torch, np, gpu, s_states, counts, cols, chain_ms) -> dict:
+    """Phase 23's KJ: the start states of the plan's streams from their
+    word offsets on the card, against the host chain's (s_states, which
+    took chain_ms) and KJ's plain version on the card; its card time,
+    device time and bound."""
+    from qvz_tpu_torch import _build
+    from qvz_tpu_torch.ops import well_draws as wd
+    from qvz_tpu_torch.ops import well_jump as wj
+    from qvz_tpu_torch.ops.well import WellState
+    from qvz_tpu_torch.pipeline import host
+    from qvz_tpu_torch.roofline import ALU_LANES_PER_SM, bound
+
+    dev = torch.device("cuda")
+    v0 = host._state_words(WellState.debug())
+    words, _, _ = wd.stream_offsets(counts, cols)
+    out = {}
+    before = _build.LAUNCHES["well_jump"]
+
+    def kernel():
+        out["j"] = wj.states_t(v0, words, dev)
+
+    kernel()    # the table's upload, once a card
+    ms = statistics.median(event_ms(kernel, torch) for _ in range(6))
+    dev_ms = device_ms(torch, kernel, "well_jump_kernel")
+    launches = _build.LAUNCHES["well_jump"] - before
+    got = out.pop("j")
+    require(np.array_equal(got.cpu().numpy().view(np.uint32), s_states),
+            "[23] KJ's states equal the host chain's (rt.well_jump) on "
+            "every stream")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = wj.states_t_reference(
+        torch.from_numpy(v0.view(np.int32)).to(dev),
+        torch.from_numpy(words).to(dev), wj.table_t(got.device))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(got, plain),
+            "[23] KJ's states equal its plain version's on the card")
+    # a product: 1,024 rows of 32 three-input AND-XORs and a parity
+    products = sum(bin(int(w)).count("1") for w in words)
+    ops = products * 1024 * (32 + 1)
+    powers = bin(int(np.bitwise_or.reduce(words))).count("1")
+    nbytes = powers * 1024 * 128 + 8 * len(words) + 128 * len(words)
+    bnd = bound(nbytes, ops, gpu.per_s(ALU_LANES_PER_SM))
+    print(f"[23] KJ, {len(words)} streams ({products} products of "
+          f"{powers} powers of M): equal to the host chain's states on "
+          f"every stream and to its plain version; kernel {ms:.4f} ms "
+          f"(median of 6, CUDA events, the offsets' upload included), "
+          f"device {dev_ms:.4f} ms (profiler, mean of 5); bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}: {ops / 1e9:.3f} G operations, "
+          f"{nbytes / 1e6:.2f} MB); plain {plain_ms:.1f} ms (once); the "
+          f"host chain (shard_plan, stream_plan) {chain_ms:.1f} ms; "
+          f"launches {launches}", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "chain_ms": chain_ms, "bound": bnd, "launches": launches}
 
 
 def sanitizer_phase() -> dict:
@@ -2876,7 +2951,7 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     print(f"[5] kernel launches by the encodes: {launches}")
     for name in ("hist", "quantize", "coder_triples", "coder_chain",
-                 "well_draws"):
+                 "well_draws", "well_jump"):
         require(launches.get(name, 0) >= 1, f"the encode launched {name}")
     # the encode's stats phase split as pipeline/encode.py runs it: K3
     # (CUDA events), then the counts' copy to the host (host clock)
@@ -2942,6 +3017,8 @@ def main() -> int:
     # -- 23. KW on the 10M x 100 plan ----------------------------------------
     well = well_phase(torch, np, gpu)
     launches["well_draws"] += well["launches"]
+    launches["well_jump"] = launches.get("well_jump", 0) \
+        + well["jump"]["launches"]
     require("jax" not in sys.modules, "no JAX imported")
 
     kernels = [
@@ -3023,6 +3100,15 @@ def main() -> int:
          "ms": well["ms"], "device_ms": well["device_ms"],
          "plain_ms": well["plain_ms"], "bound_ms": well["bound"][0],
          "bound_by": well["bound"][1], "library_ms": None},
+        # KJ replaces the host's chained jump-ahead (rt.well_jump)
+        {"name": "well_jump", "route": "cuda",
+         "source": "qvz_tpu_torch/csrc/well_jump.cu",
+         "replaces": "qvz_tpu_torch/pipeline/host.py:122",
+         "launches": launches["well_jump"], "max_abs_err": 0,
+         "ms": well["jump"]["ms"], "device_ms": well["jump"]["device_ms"],
+         "plain_ms": well["jump"]["plain_ms"],
+         "bound_ms": well["jump"]["bound"][0],
+         "bound_by": well["jump"]["bound"][1], "library_ms": None},
         *mb_kernels,
     ]
     for k in kernels:

@@ -40,9 +40,10 @@ NVCC_FLAGS = [
 
 # Kernel launches per wrapper ("quantize", "coder_triples",
 # "coder_chain" and "coder_segment" (K2a, K2b, K2s), "hist", "kmeans",
-# "decoder" and "cluster_prologue" (K5, K5p), "well_draws" (KW), and the
-# microbenchmark's "issue", "mix" and "selmix"): each
-# wrapper adds one where it launches its kernel, and nowhere else.
+# "decoder" and "cluster_prologue" (K5, K5p), "well_draws" (KW),
+# "well_jump" (KJ), and the microbenchmark's "issue", "mix" and
+# "selmix"): each wrapper adds one where it launches its kernel, and
+# nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -166,6 +167,8 @@ def load(lineinfo: bool = False) -> ctypes.CDLL:
     lib.qvz_decoder_smem_limit.restype = ctypes.c_int
     lib.qvz_well_draws.argtypes = [p, p, i32, i32, i64, p, p]
     lib.qvz_well_draws.restype = ctypes.c_int
+    lib.qvz_well_jump_states.argtypes = [p, p, p, i32, p, p]
+    lib.qvz_well_jump_states.restype = ctypes.c_int
     lib.qvz_microbench_issue.argtypes = [p, i32, i32, i32, p, p]
     lib.qvz_microbench_issue.restype = ctypes.c_int
     lib.qvz_microbench_mix.argtypes = [i32, i32, p, p, i64, i32, i32, p, p]

@@ -91,6 +91,8 @@ def load() -> ctypes.CDLL:
     lib.qvz_encode_lines.restype = c.c_int64
     lib.qvz_well_jump.argtypes = [u32p, c.c_uint32, c.c_uint64, u32p]
     lib.qvz_well_jump.restype = None
+    lib.qvz_well_pow_table.argtypes = [u64p]
+    lib.qvz_well_pow_table.restype = None
 
     lib.qvz_xxh64.argtypes = [u8p, c.c_uint64, c.c_uint64]
     lib.qvz_xxh64.restype = c.c_uint64

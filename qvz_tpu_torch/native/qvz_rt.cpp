@@ -1678,6 +1678,18 @@ void qvz_well_jump(const uint32_t* state, uint32_t n_chunks,
   }
 }
 
+// The table of M^(2^k), k = 0..63, to out: 64 x 1024 bit rows of 16
+// words each (8 MB), row i of M^(2^k) at out + 16 (1024 k + i); bit j of
+// a row (word j / 64, bit j % 64) multiplies bit j of the state vector.
+// The device jump (KJ, csrc/well_jump.cu) reads it from the card.
+void qvz_well_pow_table(uint64_t* out) {
+  using namespace welljump;
+  const std::vector<Mat>& t = pow_table();
+  for (size_t k = 0; k < t.size(); ++k)
+    std::memcpy(out + k * kBits * kWpr, t[k].r.data(),
+                sizeof(uint64_t) * kBits * kWpr);
+}
+
 }  // extern "C"
 
 extern "C" {

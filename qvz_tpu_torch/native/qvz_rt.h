@@ -14,6 +14,7 @@ extern "C" {
 void qvz_well_draws7(const uint32_t* state, uint64_t n_draws, uint8_t* out);
 void qvz_well_jump(const uint32_t* state, uint32_t n_chunks,
                    uint64_t words_per_chunk, uint32_t* out);
+void qvz_well_pow_table(uint64_t* out);
 
 // --- integrity ------------------------------------------------------------
 uint64_t qvz_xxh64(const uint8_t* p, uint64_t len, uint64_t seed);

@@ -66,6 +66,17 @@ def well_jump(state_words, n_chunks: int, words_per_chunk: int
     return out
 
 
+def well_pow_table() -> np.ndarray:
+    """The GF(2) jump table of one WELL-1024a word step M: M^(2^k) for k
+    = 0..63 as (64, 1024, 16) uint64, row i of M^(2^k) the 1,024 bits
+    (16 words, least significant first) whose parity with the state
+    vector (n=0 semantics: word w's bit b is vector bit 32 w + b) gives
+    bit i of the state 2^k words on."""
+    out = np.empty((64, 1024, 16), dtype=np.uint64)
+    native.load().qvz_well_pow_table(_ptr(out, _u64p))
+    return out
+
+
 class Tables:
     """Flat coding tables (see qvz_rt.cpp Tables). Owns the C++ handle."""
 

@@ -13,8 +13,9 @@
 //   1. qvz_kmeans_iter: its own row threads over the whole buffer, and
 //      chunk by chunk on slices of one buffer from concurrent threads
 //      (the streamed and multi-host k-means), merged as exact integers;
-//   2. qvz_well_jump (racing on the once-built power table) and
-//      qvz_well_draws7 from concurrent threads;
+//   2. qvz_well_jump and qvz_well_pow_table (racing on the once-built
+//      power table) and qvz_well_draws7 from concurrent threads, the
+//      exported table's rows applied to a state held to the jump;
 //   3. qvz_design_create (its parallel_for), its qvz_design_stats, the
 //      tables from the design and from the serialized blocks (the
 //      decoder's tables);
@@ -203,6 +204,33 @@ int main() {
       CHECK(d == draws[t]);
     }
     std::printf("well_jump + well_draws7 x%d concurrent: ok\n", nt);
+  }
+  {
+    const int nt = 4;
+    const size_t words = 64 * 1024 * 16;
+    std::vector<std::vector<uint64_t>> tabs(nt);
+    run_threads(nt, [&](int t) {
+      tabs[t].resize(words);
+      qvz_well_pow_table(tabs[t].data());
+    });
+    for (int t = 1; t < nt; ++t) CHECK(tabs[t] == tabs[0]);
+    // bit i of M^(2^k) v: the parity of row i AND v (v as 16 words)
+    uint64_t v[16];
+    std::memcpy(v, base_state, sizeof(v));
+    for (const int k : {0, 3, 17, 35}) {
+      uint32_t got[32] = {0};
+      const uint64_t* m = tabs[0].data() + static_cast<size_t>(k) * 1024 * 16;
+      for (int i = 0; i < 1024; ++i) {
+        uint64_t acc = 0;
+        for (int w = 0; w < 16; ++w) acc ^= m[i * 16 + w] & v[w];
+        got[i / 32] |= static_cast<uint32_t>(__builtin_parityll(acc))
+                       << (i % 32);
+      }
+      std::vector<uint32_t> want(32 * 2);
+      qvz_well_jump(base_state, 2, 1ull << k, want.data());
+      CHECK(std::equal(got, got + 32, want.begin() + 32));
+    }
+    std::printf("well_pow_table x%d concurrent: ok\n", nt);
   }
 
   // 3. Threaded design; the encoder's tables and the decoder's, parsed

@@ -6,11 +6,13 @@ pool-word boundaries: shard s starts from its GF(2) jump-ahead state
 (``pipeline.host.shard_plan``) with an empty pool, and its draws fill its
 lines in (line, column) order, four from each 32-bit pool word and the
 word's last 4 bits thrown away (``rt.well_draws7``, reference
-src/well.c:33-46). ``stream_plan`` cuts the plan's shards into KW's
-streams, and ``draws_t`` writes a block's draws as the (cols, N) uint8
-array that K1 reads. No TPU kernel corresponds: ``qvz_tpu`` fills the
-draws on the host (``pipeline.host._shard_draws`` here) and copies them
-to the device.
+src/well.c:33-46). ``stream_offsets`` cuts the plan's shards into KW's
+streams (``stream_plan`` also gives their states from the host's jump;
+the device encode has KJ make them, ``ops/well_jump.py``), and
+``draws_t`` writes a block's draws as the (cols, N) uint8 array that K1
+reads. No TPU kernel corresponds: ``qvz_tpu`` fills the draws on the
+host (``pipeline.host._shard_draws`` here) and copies them to the
+device.
 
 This module holds no WELL state of its own (``ops/well.py``, which the
 host engine imports without torch, holds it).
@@ -32,31 +34,48 @@ _SHIFTS = (0, 7, 14, 21)
 _CHUNK_WORDS = 4096
 
 
-def stream_plan(states: np.ndarray, counts, columns: int):
-    """KW's streams for a QVZ2 plan of shards with start states (S, 32)
-    uint32 and lines `counts`: each shard one stream, except that a shard
-    of more lines than the longest lane rounded up to a multiple of 4, P
-    (the warmup shard of a primed plan), is cut into pieces of P lines
-    (the last ragged), each from the state rt.well_jump gives P x columns
-    / 4 pool words on. P x columns is a multiple of 4, so every piece
-    starts on a pool word, and the cut depends on the plan's counts
-    alone. The lanes are the shards after the first where the plan has
-    more than one. Returns (states (T, 32) uint32, lines (T,) int64),
-    in the order of the lines."""
-    counts = [int(c) for c in counts]
+def _piece(counts) -> int:
+    """The lines of a piece: the longest lane rounded up to a multiple of
+    4 (the lanes are the shards after the first where the plan has more
+    than one)."""
     lanes = counts[1:] if len(counts) > 1 else counts
-    piece = (max(lanes) + 3) & ~3
-    out_states, out_lines = [], []
-    for state, count in zip(np.asarray(states, dtype=np.uint32), counts):
-        k = -(-count // piece)
-        if k <= 1:
-            out_states.append(state[None, :])
-            out_lines.append(count)
-            continue
-        out_states.append(rt.well_jump(state, k, piece * columns // 4))
-        out_lines += [piece] * (k - 1) + [count - piece * (k - 1)]
-    return (np.concatenate(out_states).astype(np.uint32),
-            np.asarray(out_lines, dtype=np.int64))
+    return (int(max(lanes)) + 3) & ~3
+
+
+def stream_offsets(counts, columns: int):
+    """KW's streams for a QVZ2 plan of shards of lines `counts`, from the
+    counts alone: each shard one stream, except that a shard of more lines
+    than a piece, P lines (``_piece``; the warmup shard of a primed plan),
+    is cut into pieces of P lines, the last ragged. Every shard but the
+    last, and P, is a multiple of 4 lines, so every stream starts on a
+    pool word. Returns (each stream's word offset into the file's WELL
+    stream (T,) int64, its lines (T,) int64, the index of each shard's
+    first stream (S,) int64), in the order of the lines."""
+    c = np.asarray(counts, dtype=np.int64)
+    piece = _piece(c)
+    k = np.maximum(1, -(-c // piece))
+    first = np.concatenate([[0], np.cumsum(k)[:-1]]).astype(np.int64)
+    shard = np.repeat(np.arange(len(c)), k)
+    i = np.arange(len(shard), dtype=np.int64) - first[shard]
+    start = (np.cumsum(c) - c)[shard] + i * piece
+    return (start * columns // 4, np.minimum(piece, c[shard] - i * piece),
+            first)
+
+
+def stream_plan(states: np.ndarray, counts, columns: int):
+    """KW's streams (``stream_offsets``) for a QVZ2 plan of shards with
+    start states (S, 32) uint32 and lines `counts`, a cut shard's pieces
+    from the states rt.well_jump gives P x columns / 4 pool words apart.
+    Returns (states (T, 32) uint32, lines (T,) int64), in the order of
+    the lines."""
+    _, lines, first = stream_offsets(counts, columns)
+    step = _piece(counts) * columns // 4
+    out_states = []
+    for state, k in zip(np.asarray(states, dtype=np.uint32),
+                        np.diff(np.append(first, len(lines)))):
+        out_states.append(state[None, :] if k == 1
+                          else rt.well_jump(state, int(k), step))
+    return np.concatenate(out_states).astype(np.uint32), lines
 
 
 def _offsets(lines, device) -> torch.Tensor:

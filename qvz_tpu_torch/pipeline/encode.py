@@ -12,9 +12,9 @@ Phases, with the JAX package's names in ``EncodeStats.phase_seconds``:
                statistics and the design
   design       codebook design on the host (C++ runtime, exact doubles),
                or the tables read from reuse_blocks
-  draws        the WELL jump-ahead on the host and the dither draws: KW
-               (ops/well_draws.py) for the blocks on a CUDA device, host
-               threads for the others
+  draws        the WELL jump-ahead and the dither draws: KJ and KW
+               (ops/well_jump.py, ops/well_draws.py) for the blocks on a
+               CUDA device, the host's jump and threads for the others
   quantize     K1 on the device (ops/quantize.py)
   device_code  K2s (the cluster-id segment's triples, -c K > 1), K2a and
                K2b on the device (ops/coder_device.py), the warmup shard
@@ -28,12 +28,16 @@ and, inside them (all but design_serial for QVZ2 only):
   design_serial  the design's time outside its threaded context sweeps
                  (``rt.Design.stats``), summed over the clusters; none
                  with reuse_blocks
-  jump           the GF(2) jump-ahead of every shard's WELL start state,
-                 one thread (``shard_plan``), and for KW of the warmup
-                 shard's pieces (``well_draws.stream_plan``); in draws
-  fill           KW's launch on each block on a card, its states' upload
-                 included, and for the others the threaded dither draws
-                 of the block's shards (``_shard_draws``); in draws
+  jump           the GF(2) jump-ahead of the WELL start states: where
+                 every block is on a card, KJ on each block's KW streams
+                 (``well_draws.stream_offsets``: the lanes and the warmup
+                 shard's pieces), their offsets' upload and the shards'
+                 states' copy to the host included; where one is not,
+                 every shard's on one host thread (``shard_plan``), and
+                 KJ on the card blocks' streams; in draws
+  fill           KW's launch on each block on a card, its line offsets'
+                 upload included, and for the others the threaded dither
+                 draws of the block's shards (``_shard_draws``); in draws
   warmup_prep    the warmup shard's quantize and primed bank on the host,
                  before any lane launches; in device_code
   coder_plan     the lane coder's plan on the host (``LanePlan``: the
@@ -50,14 +54,18 @@ and, inside them (all but design_serial for QVZ2 only):
 
 Each phase is a ``utils.spans.span``: under a torch profiler also a range
 ``qvz.<phase>`` on the profiler's clock. ``EncodeStats.counters`` holds
-``h2d_bytes``, the bytes copied to the devices (the reads, KW's start
-states and line offsets or the host's draws, and the lane plan),
+``h2d_bytes``, the bytes copied to the devices (the reads, KJ's word
+offsets and KW's line offsets or the host's draws, and the lane plan;
+not KJ's table, uploaded once a device and process),
 ``device_draws``, the draws KW made (the lines of the blocks on a card
-x cols; 0 where the host filled every block's), the design's
+x cols; 0 where the host filled every block's), ``device_jumps``, the
+start states KJ made (the streams of the blocks on a card; 0 where the
+host jumped every block's), the design's
 ``lloyd_iters`` and ``lloyd_discarded_iters``, and the lane plan's
 ``coder_models`` (the models of its columns) and ``coder_models_at_risk``
-(``risk_tables``' count at the file's longest lane). Device phases, and
-``fill``, end in a synchronise, so each time covers its device work.
+(``risk_tables``' count at the file's longest lane). Device phases,
+``jump`` and ``fill`` end in a synchronise, so each time covers its
+device work.
 Every encode runs its device phases on blocks of reads
 (``parallel/sharded.py``): one block on `device`, or with a mesh one
 contiguous block a mesh entry, cut at shard boundaries, the k-means and
@@ -81,7 +89,7 @@ from qvz_tpu_torch.constants import MODE_RATIO
 from qvz_tpu_torch.device import resolve
 from qvz_tpu_torch.format import container_v2
 from qvz_tpu_torch.native import runtime as rt
-from qvz_tpu_torch.ops import coder_device, quantize, well_draws
+from qvz_tpu_torch.ops import coder_device, quantize, well_draws, well_jump
 from qvz_tpu_torch.ops.well import WellState
 from qvz_tpu_torch.parallel import sharded
 from qvz_tpu_torch.pipeline import host
@@ -190,31 +198,55 @@ def encode(data: np.ndarray, dist_matrix: np.ndarray, *,
         return _output(compressed, payload_bytes, recon, dist_sum,
                        clusters, st, on_host)
 
-    # each block's draws: KW's on a card; off the card the host fills the
-    # block's shards and they are copied, as for qvz_tpu
+    # each block's draws: KW's on a card, from start states that KJ makes
+    # there; off the card the host jumps and fills the block's shards and
+    # they are copied, as for qvz_tpu
     on_card = [b.device.type == "cuda" for b in blocks]
     st.counters["device_draws"] = 0
+    st.counters["device_jumps"] = 0
     with span(ph, "draws"):
         with span(ph, "jump"):
-            counts, states, offs, prime_on = shard_plan(
-                n, columns, shards, prime, well_state)
+            if all(on_card):
+                counts, prime_on = shard_counts(n, columns, shards, prime)
+            else:
+                counts, states, _, prime_on = shard_plan(
+                    n, columns, shards, prime, well_state)
+            offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
             if any(on_card):
-                s_states, s_lines = well_draws.stream_plan(states, counts,
-                                                           columns)
+                s_words, s_lines, s_first = well_draws.stream_offsets(
+                    counts, columns)
                 s_offs = np.concatenate([[0], np.cumsum(s_lines)])
-        with span(ph, "fill"):
-            draws_t = []
-            for b, card in zip(blocks, on_card):
-                # the block's streams, or shards: blocks are cut at shard
-                # boundaries
-                if card:
+                v0 = host._state_words(well_state)
+                # each card block's streams, and their start states there:
+                # blocks are cut at shard boundaries
+                s_range, s_states = [], []
+                for b, card in zip(blocks, on_card):
                     t0, t1 = (int(t) for t in np.searchsorted(
                         s_offs, [b.lo, b.hi]))
+                    s_range.append((t0, t1))
+                    if card:
+                        s_states.append(well_jump.states_t(
+                            v0, s_words[t0:t1], b.device))
+                        st.counters["device_jumps"] += t1 - t0
+                        st.counters["h2d_bytes"] += 8 * (t1 - t0)
+                    else:
+                        s_states.append(None)
+                if all(on_card):
+                    # every shard's start state to the host, from its first
+                    # stream, for the warmup shard's coder and the container
+                    states = np.concatenate(
+                        [x.cpu().numpy() for x in s_states]
+                    ).view(np.uint32)[s_first]
+            sharded.synchronize_all(blocks)
+        with span(ph, "fill"):
+            draws_t = []
+            for i, (b, card) in enumerate(zip(blocks, on_card)):
+                if card:
+                    t0, t1 = s_range[i]
                     draws_t.append(well_draws.draws_t(
-                        torch.from_numpy(s_states[t0:t1].view(np.int32))
-                        .to(b.device), s_lines[t0:t1], columns))
-                    # the states and the line offsets
-                    st.counters["h2d_bytes"] += 136 * (t1 - t0) + 8
+                        s_states[i], s_lines[t0:t1], columns))
+                    # the streams' line offsets
+                    st.counters["h2d_bytes"] += 8 * (t1 - t0 + 1)
                     st.counters["device_draws"] += int(b.hi - b.lo) * columns
                 else:
                     s0, s1 = (int(s) for s in np.searchsorted(

@@ -52,6 +52,9 @@ the CPU:
       and single-byte stores, a warmup shard in pieces, fewer streams a
       block at 1,000 columns, 4-line tiles at 14,600 columns and one-line
       tiles in chunks of columns at 60,000 and 60,001;
+  KJ  well_jump_kernel: the streams of those plans, from the stream
+      offsets, groups of one to many streams a block, offsets of 0 and
+      past 2^32 words;
   the microbenchmark's issue (addxor, cmpsel), mix (3-D and 2-D) and
   selmix (sel, sel_b4, sweeponly);
   the encode and decode on the card at -c 1 primed and -c 3 unprimed,
@@ -90,10 +93,11 @@ from qvz_tpu_torch.format import container_v2  # noqa: E402
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 # the mangled names of the kernels in qvz_tpu_torch/csrc/
 KERNEL_REGEX = (r"(quantize|triples|chain|segment|hist|kmeans|decode_lanes|"
-                r"text_rows|cluster_prologue|well_draws)_kernel|qvz_mb_")
+                r"text_rows|cluster_prologue|well_draws|well_jump)_kernel|"
+                r"qvz_mb_")
 KERNELS = ("quantize", "coder_triples", "coder_chain", "coder_segment",
            "hist", "kmeans", "decoder", "cluster_prologue", "well_draws",
-           "issue", "mix", "selmix")
+           "well_jump", "issue", "mix", "selmix")
 # the workload's shape: lanes of 125 lines keep the plain K2 and K5 short
 N, COLS, SHARDS = 4001, 20, 32
 CORPUS_SHAPE = (20_000, 50)
@@ -517,8 +521,11 @@ def _well(torch, dev, paths: list) -> None:
     """KW on primed and unprimed plans: 100 columns (kQuad, 16-byte stores
     where the lane offsets allow), 37 and 3 (4-byte and single-byte
     stores, ragged lanes) and 1,000 (fewer streams a block); and at 14,600,
-    60,000 and 60,001 columns (4-line and one-line tiles)."""
+    60,000 and 60,001 columns (4-line and one-line tiles). KJ on those
+    plans' streams, their states made from their offsets as the encode
+    does, and on offsets of 0 and past 2^32 words."""
     from qvz_tpu_torch.ops import well_draws as wd
+    from qvz_tpu_torch.ops import well_jump as wj
     from qvz_tpu_torch.ops.well import WellState
     from qvz_tpu_torch.pipeline import host
 
@@ -533,12 +540,22 @@ def _well(torch, dev, paths: list) -> None:
                                                    WellState.debug())
             s_states, s_lines = wd.stream_plan(states, counts, cols)
             words = torch.from_numpy(s_states.view(np.int32))
+            offsets = wd.stream_offsets(counts, cols)[0]
+            _equal(f"KJ {n} x {cols}",
+                   wj.states_t(host._state_words(WellState.debug()),
+                               offsets, dev), words)
+            paths.append(f"KJ {n} x {cols} {len(offsets)} streams")
             _equal(f"KW {n} x {cols}",
                    wd.draws_t(words.to(dev), s_lines, cols),
                    wd.draws_t_reference(words, s_lines, cols))
             paths.append(f"KW {n} x {cols} {len(s_lines)} streams")
     finally:
         host.PRIME_WARMUP_LINES = warmup
+    v0 = host._state_words(WellState.debug())
+    offsets = np.array([0, 1, 2**32 + 30_400, 2**40 + 3, 0], dtype=np.int64)
+    _equal("KJ past 2^32 words", wj.states_t(v0, offsets, dev),
+           wj.states_t(v0, offsets, "cpu"))
+    paths.append(f"KJ {len(offsets)} streams past 2^32 words")
     # past 16 lines' shared memory: 4-line tiles, and one-line tiles in
     # chunks of columns (a multiple of 4 and not), against the host's draws
     for cols, lines in ((14600, [5, 9, 0, 13, 4, 7, 6]),

@@ -126,12 +126,13 @@ def test_device_encode_phases_and_counters(small_warmup, n_clusters):
     assert ph["d2h"] <= ph["lanes"]
     assert set(dv) == {"h2d", "stats", "quantize", "device_code", "d2h"} \
         | ({"cluster"} if n_clusters > 1 else set())
-    assert set(ct) == {"h2d_bytes", "device_draws", "lloyd_iters",
-                       "lloyd_discarded_iters", "coder_models",
-                       "coder_models_at_risk"}
+    assert set(ct) == {"h2d_bytes", "device_draws", "device_jumps",
+                       "lloyd_iters", "lloyd_discarded_iters",
+                       "coder_models", "coder_models_at_risk"}
     # the reads and the host's draws (on the CPU), then the lane plan
     assert ct["h2d_bytes"] > 2 * n * cols
     assert ct["device_draws"] == 0
+    assert ct["device_jumps"] == 0
     assert 0 <= ct["lloyd_discarded_iters"] <= ct["lloyd_iters"]
     assert ct["lloyd_iters"] > 0
 

@@ -147,10 +147,10 @@ def test_device_encode_with_kw_matches_host_engine(monkeypatch, n_clusters,
         assert got.compressed == want.compressed
         ct = got.stats.counters
         assert ct["device_draws"] == n * cols
-        # KW's states and line offsets go up in place of the draws (the
-        # lane plan once a device, here one card)
+        # KJ's word offsets and KW's line offsets go up in place of the
+        # draws (the lane plan once a device, here one card)
         assert ct["h2d_bytes"] == on_cpu["h2d_bytes"] - n * cols \
-            + 128 * streams + 8 * (streams + blocks)
+            + 8 * streams + 8 * (streams + blocks)
         assert all(type(v) is int for v in ct.values()), ct
 
 
